@@ -42,7 +42,6 @@ def main():
                        y0=0.01, eaj=0.0, erj=0.0, erc=0.0, eac=0.0,
                        strict_weak_duality=False)
     sd = stagewise_dual(spec, theta_floor=cfg.theta_floor, pscan=True)
-    fence = jax.jit(lambda u: jnp.sum(u))
 
     for B in (32, 256):
         rng = np.random.default_rng(0)
@@ -50,8 +49,8 @@ def main():
         dt = {}
         for pscan in (False, True):
             def run():
-                res = solve_stagewise(sd, x0, cfg=cfg, pscan=pscan)
-                float(fence(res.U))
+                jax.block_until_ready(
+                    solve_stagewise(sd, x0, cfg=cfg, pscan=pscan))
             run()    # compile + warm-up
             times = []
             for _ in range(3):
@@ -62,10 +61,11 @@ def main():
         print(json.dumps({
             "metric": "stagewise_pscan_speedup", "H": H, "B": B,
             "fixed_iters": iters,
-            "seq_us_per_iter": round(dt[False] / iters * 1e6, 1),
-            "pscan_us_per_iter": round(dt[True] / iters * 1e6, 1),
-            "speedup": round(dt[False] / dt[True], 2),
-            "platform": jax.devices()[0].platform}))
+            "seq_us_per_iter": dt[False] / iters * 1e6,
+            "pscan_us_per_iter": dt[True] / iters * 1e6,
+            "speedup": dt[False] / dt[True],
+            "platform": jax.devices()[0].platform,
+            "device_kind": jax.devices()[0].device_kind}))
 
 
 if __name__ == "__main__":

@@ -1,18 +1,15 @@
-"""On-hardware Pallas-vs-XLA conformance sweep.
+"""On-GPU engine conformance sweep: the whole-solve kernel and the
+mixed-precision path against the XLA solver.
 
-The kernels' correctness tests run in interpret mode on CPU
-(tests/test_kernels.py, tests/test_tiled_kernel.py); Mosaic compilation
-is a different code path with known divergence families (bf16 MXU
-passes, scf.while carry legalization — see ops/solve_kernel.py).  This
-script runs the REAL kernels on the REAL chip against the XLA solver
-path across N ∈ {32 … 1024} and records lane-for-lane parity: iteration
-counts, convergence flags, max |ΔU|.  The committed output
-(benchmarks/CONFORMANCE_r2.json) is this framework's analog of the
-reference's gprof evidence (Group 7 Report flat profile) — hardware
-ground truth, not simulator claims.
+The kernel's correctness tests run in interpret mode on CPU
+(tests/test_solve_kernel.py); compiled for the GPU it is a different
+float program.  This script runs every engine on the GPU against
+``solve_batched`` across N ∈ {32 … 2048} and records lane-for-lane
+parity: iteration counts, convergence flags, max |ΔU|, and in reference
+mode an f64 audit of every verdict disagreement.
 
 Run: ``python benchmarks/conformance.py [--sizes 32,64,...]``.
-One JSON line per size; exit code 1 if any size fails parity bars.
+One JSON line per size and mode; exit code 1 if any fails its bars.
 """
 
 import argparse
@@ -24,39 +21,16 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-#: update-kernel path: its convergence CHECK runs in XLA either way, so
-#: iteration counts must match essentially exactly (residual mismatches
-#: are Mosaic-vs-XLA dot rounding inside the updates drifting a
-#: razor-edge lane across a check boundary; measured <= 1/128 lanes)
-PARITY_ITERS_EXACT_FRAC = 0.98
-#: whole-solve kernel: the ENTIRE solve including the four-part check is
-#: an independent float program (Mosaic arithmetic end to end), so
+#: Each engine's ENTIRE solve including the four-part check is an
+#: independent float program, so
 #: iteration counts on razor-edge lanes legitimately differ — the same
 #: property the reference's own CPU/GPU variant pairs have (its two
 #: committed U* snapshots differ in the 3rd decimal,
 #: PQP_GPU_optimized_coarsened.cu:1201-1216).  The correctness bars are
 #: solution agreement and a bounded converged-count gap; the per-lane
 #: iteration-count match fractions are recorded as data.
-PARITY_U_ATOL = 5e-3         # max |U_pallas - U_xla| on converged lanes
-PARITY_CONV_GAP_FRAC = 0.10  # |conv_fused - conv_xla| <= 10% of batch
-
-
-def build(N, M, B, seed):
-    import jax.numpy as jnp
-    from pqp_for_mpc_tpu.dual import dualize
-    from pqp_for_mpc_tpu.problem import PrimalQP
-
-    rng = np.random.default_rng(seed)
-    Q = rng.normal(0, 1, (M, M)).astype(np.float32)
-    Qp = Q @ Q.T + M * np.eye(M, dtype=np.float32)
-    Gp = rng.normal(0, 1, (N, M)).astype(np.float32)
-    Fp = rng.normal(0, 3, (M, B)).astype(np.float32)
-    Kp = rng.uniform(1, 10, (N,)).astype(np.float32)
-    primal = PrimalQP(Qp=jnp.asarray(Qp),
-                      Qp_inv=jnp.asarray(np.linalg.inv(Qp)),
-                      Fp=jnp.asarray(Fp), Mp=jnp.zeros((B,), jnp.float32),
-                      Gp=jnp.asarray(Gp), Kp=jnp.asarray(Kp))
-    return primal, dualize(primal)
+PARITY_U_ATOL = 5e-3         # max |U_engine - U_xla| on converged lanes
+PARITY_CONV_GAP_FRAC = 0.10  # |conv_engine - conv_xla| <= 10% of batch
 
 
 def f64_gap_audit(primal, dual, Y, lanes):
@@ -65,8 +39,8 @@ def f64_gap_audit(primal, dual, Y, lanes):
     explicit-form program (eps32 * the largest term magnitude entering
     the Jp + Jd cancellation).  A lane whose |f64 gap| sits below the
     floor has a verdict that NO f32 explicit-form program can make
-    reliably — two independent float programs (Mosaic vs XLA) must be
-    allowed to disagree on it (VERDICT r4 weak #1 / next #4)."""
+    reliably — two independent float programs must be allowed to
+    disagree on it."""
     if not lanes.any():
         return dict(n=0)
     f64 = np.float64
@@ -107,150 +81,72 @@ def main():
 
     import jax
 
-    from pqp_for_mpc_tpu import SolverConfig
-    from pqp_for_mpc_tpu.ops.kernels import fits_vmem
-    from pqp_for_mpc_tpu.ops.solve_kernel import solve_fused
+    from pqp_for_mpc_tpu import SolverConfig, dualize
+    from pqp_for_mpc_tpu.io.generator import gaussian_batch
+    from pqp_for_mpc_tpu.ops.solve_kernel import fused_supports, solve_fused
     from pqp_for_mpc_tpu.solver import solve_batched, solve_mixed
 
-    dev = str(jax.devices()[0])
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        sys.exit(f"conformance.py: no GPU (JAX found {dev.platform})")
+
+    def timed(fn):
+        jax.block_until_ready(fn())
+        t0 = time.perf_counter()
+        r = jax.block_until_ready(fn())
+        return time.perf_counter() - t0, r
+
     ok_all = True
     for N in [int(s) for s in args.sizes.split(",")]:
       for mode in ("reference", "complementarity"):
         # "reference": the reference's exact termination semantics
         # (strict weak duality, explicit Jp+Jd gap).  "complementarity":
         # the production MPC certification (gap_from_complementarity,
-        # strict off) — round 3 taught the kernels this estimator
-        # (VERDICT r2 task 4); its better conditioning makes the
-        # Mosaic-vs-XLA verdicts far less razor-edge.
+        # strict off), far less razor-edge.
         gc = mode == "complementarity"
         M = max(8, N // 3)
-        primal, dual = build(N, M, args.b, seed=N)
+        primal = gaussian_batch(N, M, args.b, seed=N)
+        dual = dualize(primal)
         cfg = SolverConfig(max_iters=args.max_iters, check_every=16,
                            strict_weak_duality=not gc,
                            gap_from_complementarity=gc)
-        cfg_k = SolverConfig(max_iters=args.max_iters, check_every=16,
-                             strict_weak_duality=not gc,
-                             gap_from_complementarity=gc,
-                             use_pallas=True)
-
-        def timed(fn):
-            r = jax.block_until_ready(fn())
-            t0 = time.perf_counter()
-            r = jax.block_until_ready(fn())
-            return time.perf_counter() - t0, r
-
-        resident = fits_vmem(N)
+        mixed = jax.jit(lambda p, d: solve_mixed(p, d, cfg=cfg))
+        engines = {"mixed": lambda: mixed(primal, dual)}
+        if fused_supports(dual, cfg):
+            engines["fused"] = lambda: solve_fused(primal, dual, cfg=cfg)
         t_x, rx = timed(lambda: solve_batched(primal, dual, cfg=cfg))
-        # whole-solve kernel (one launch; resident sizes only) and the
-        # update-kernel-inside-while-loop path (fused_pqp_iterations
-        # resident, HBM-tiled past fits_vmem)
-        rf = None
-        if resident:
-            t_f, rf = timed(lambda: solve_fused(primal, dual, cfg=cfg))
-        t_k, rk = timed(lambda: solve_batched(primal, dual, cfg=cfg_k))
-        # mixed-precision path (bf16 bulk + f32 certify; rides the bf16
-        # streamed update kernel beyond residency via use_pallas) — its
-        # phase-2 certification is the XLA program, so its verdicts must
-        # track XLA's closely in BOTH modes (VERDICT r4 next #4)
-        t_m, rm = timed(lambda: jax.jit(
-            lambda p, d: solve_mixed(p, d, cfg=cfg_k))(primal, dual))
-
-        ix, ik, im = (np.asarray(r.iters) for r in (rx, rk, rm))
-        cx, ck, cm = (np.asarray(r.converged) for r in (rx, rk, rm))
-        both_k = cx & ck
-        both_m = cx & cm
-        du_k = float(np.max(np.abs(np.asarray(rk.U) - np.asarray(rx.U))
-                            [:, both_k], initial=0.0))
-        du_m = float(np.max(np.abs(np.asarray(rm.U) - np.asarray(rx.U))
-                            [:, both_m], initial=0.0))
-        cadence = cfg.check_every
-        row = {
-            "bench": "pallas_xla_conformance", "device": dev,
-            "N": N, "M": M, "B": args.b, "mode": mode,
-            "xla_converged": int(cx.sum()),
-            "update_kernel_converged": int(ck.sum()),
-            "mixed_converged": int(cm.sum()),
-            "iters_match_update_kernel": float((ik == ix).mean()),
-            "max_dU_update_kernel": du_k,
-            "max_dU_mixed": du_m,
-            "mixed_engine": ("xla_bf16" if resident else "bf16_kernel"),
-            "xla_s": round(t_x, 4),
-            "update_kernel_s": round(t_k, 4),
-            "mixed_s": round(t_m, 4),
-        }
-        conv_gaps = [abs(int(ck.sum()) - int(cx.sum())),
-                     abs(int(cm.sum()) - int(cx.sum()))]
-        du_all = [du_k, du_m]
-        # the audit escape hatch exists only in reference mode (where
-        # the explicit-form noise floor is the measured cause); in
-        # complementarity mode disagreements must pass the plain bar
-        audits_clean = mode == "reference"
-        if mode == "reference":
-            # razor-edge audit for every engine whose verdicts drift
-            # from XLA's: recompute each disagreement lane's explicit
-            # gap in f64 — below_floor_frac == 1.0 means the
-            # disagreement sits inside the f32 explicit-form noise
-            # floor (irreducible float-program divergence, not a
-            # defect).  The tiled update kernel's relu-split
-            # reconstruction and the mixed path's bf16 phase are
-            # independent float programs the same way the whole-solve
-            # kernel is.
-            for name, c_o, r_o in (("update_kernel", ck, rk),
-                                   ("mixed", cm, rm)):
-                dis = c_o != cx
-                if dis.any():
-                    audit = f64_gap_audit(
-                        primal, dual,
-                        np.where(c_o[None, :], np.asarray(r_o.Y),
-                                 np.asarray(rx.Y)), dis)
-                    row[f"{name}_disagree_audit"] = audit
-                    audits_clean = audits_clean and \
-                        audit["below_floor_frac"] == 1.0
-        if rf is not None:
-            if_ = np.asarray(rf.iters)
-            cf = np.asarray(rf.converged)
-            both_f = cx & cf
-            du_f = float(np.max(np.abs(np.asarray(rf.U)
-                                       - np.asarray(rx.U))
-                                [:, both_f], initial=0.0))
+        ix, cx = np.asarray(rx.iters), np.asarray(rx.converged)
+        row = {"bench": "engine_conformance",
+               "device_kind": dev.device_kind, "N": N, "M": M,
+               "B": args.b, "mode": mode, "xla_converged": int(cx.sum()),
+               "xla_s": t_x}
+        ok = True
+        for name, fn in engines.items():
+            t_e, re = timed(fn)
+            ie, ce = np.asarray(re.iters), np.asarray(re.converged)
+            both = cx & ce
+            du = float(np.max(np.abs(np.asarray(re.U) - np.asarray(rx.U))
+                              [:, both], initial=0.0))
+            gap = abs(int(ce.sum()) - int(cx.sum()))
             row.update({
-                "fused_converged": int(cf.sum()),
-                "iters_match_fused": float((if_ == ix).mean()),
-                "iters_within_cadence_fused": float(
-                    (np.abs(if_.astype(np.int64) - ix) <= cadence).mean()),
-                "max_dU_fused": du_f,
-                "fused_s": round(t_f, 4),
-                "fused_speedup_vs_xla": round(t_x / t_f, 2),
-            })
-            conv_gaps.append(abs(int(cf.sum()) - int(cx.sum())))
-            du_all.append(du_f)
-            if mode == "reference":
-                # razor-edge audit: every verdict-disagreement lane is
-                # recomputed in f64 — below_floor_frac == 1.0 means the
-                # disagreements sit entirely inside the f32 explicit-
-                # form noise floor (irreducible float-program
-                # divergence, not a kernel defect)
-                dis = cf != cx
+                f"{name}_converged": int(ce.sum()),
+                f"{name}_iters_within_cadence": float(
+                    (np.abs(ie.astype(np.int64) - ix)
+                     <= cfg.check_every).mean()),
+                f"{name}_max_dU": du, f"{name}_s": t_e})
+            # verdict-count gaps pass within 10% of the batch, or in
+            # reference mode when the f64 audit shows every disagreement
+            # sits inside the f32 explicit-form noise floor
+            conv_ok = gap <= PARITY_CONV_GAP_FRAC * args.b
+            dis = ce != cx
+            if mode == "reference" and dis.any():
                 audit = f64_gap_audit(
                     primal, dual,
-                    np.where(cf[None, :], np.asarray(rf.Y),
+                    np.where(ce[None, :], np.asarray(re.Y),
                              np.asarray(rx.Y)), dis)
-                row["fused_disagree_audit"] = audit
-                if audit.get("n"):
-                    audits_clean = audits_clean and \
-                        audit["below_floor_frac"] == 1.0
-        # Bars: solution agreement always; exact per-lane iteration
-        # match only where the update kernel runs the RESIDENT path
-        # (same trajectory as XLA to float noise — the tiled kernel's
-        # relu-split reconstruction is an independent float program);
-        # verdict-count gaps pass either within 10% of the batch or
-        # when the f64 audit proves every disagreement is sub-noise.
-        iters_ok = (not resident
-                    or row["iters_match_update_kernel"]
-                    >= PARITY_ITERS_EXACT_FRAC)
-        conv_ok = (max(conv_gaps) <= PARITY_CONV_GAP_FRAC * args.b
-                   or audits_clean)
-        ok = iters_ok and max(du_all) <= PARITY_U_ATOL and conv_ok
+                row[f"{name}_disagree_audit"] = audit
+                conv_ok = conv_ok or audit["below_floor_frac"] == 1.0
+            ok = ok and conv_ok and du <= PARITY_U_ATOL
         row["parity_ok"] = ok
         ok_all = ok_all and ok
         print(json.dumps(row), flush=True)

@@ -2,17 +2,14 @@
 
 The reference's largest fixture is N=1500 (testing/sample test/
 test1.txt) and its GPU fusion ceiling is one update's two matvecs per
-launch (PQP_Fusion.cu:772-846).  Beyond VMEM residency the solve is
-HBM-bandwidth-bound, and this framework's fastest large-N path runs the
-BULK of the iterations against a consistently-rounded bfloat16 copy of
-the dual Hessian — half the bytes per sweep (a quarter through the bf16
-streamed kernel, ``SolverConfig(use_pallas=True)``) — then refines and
-CERTIFIES in float32 on the true problem.  Measured on one v5e chip at
-N=4096/B=128: 7.34 s (f32) -> 1.79 s (mixed + bf16 kernel), identical
-certified solutions (benchmarks/MIXED_BENCH_r4.json).
+launch (PQP_Fusion.cu:772-846).  At large N each update is one
+``(N, N) @ (N, B)`` matrix product, and ``solve_mixed`` runs the BULK of
+the iterations against a consistently-rounded bfloat16 copy of the dual
+Hessian (bf16 operands, f32 accumulation) — then refines and CERTIFIES
+in float32 on the true problem.
 
 This example runs a small instance so it executes anywhere (the CPU
-backend emulates bf16); point --n at 4096 on a TPU to see the real
+backend emulates bf16); point --n at 4096 on a GPU to see the real
 effect, or run ``python benchmarks/bench_mixed.py``.
 
     python examples/large_n_mixed.py [--n 384] [--b 8]
@@ -29,27 +26,17 @@ from functools import partial
 import numpy as np
 
 import jax
-import jax.numpy as jnp
 
 from pqp_for_mpc_tpu import SolverConfig, solve_batched, solve_mixed
 from pqp_for_mpc_tpu.dual import dualize
-from pqp_for_mpc_tpu.problem import PrimalQP
+from pqp_for_mpc_tpu.io.generator import gaussian_batch
 
 
 def build(N, M, B, seed=0):
-    rng = np.random.default_rng(seed)
-    Q = rng.normal(0, 1, (M, M)).astype(np.float32)
-    Qp = Q @ Q.T + M * np.eye(M, dtype=np.float32)
-    primal = PrimalQP(
-        Qp=jnp.asarray(Qp),
-        Qp_inv=jnp.asarray(np.linalg.inv(Qp).astype(np.float32)),
-        Fp=jnp.asarray(rng.normal(0, 3, (M, B)).astype(np.float32)),
-        Mp=jnp.zeros((B,), jnp.float32),
-        Gp=jnp.asarray(rng.normal(0, 1, (N, M)).astype(np.float32)),
-        Kp=jnp.asarray(rng.uniform(1, 10, N).astype(np.float32)))
-    # split-free geometry (round 5): this example only runs the XLA and
-    # mixed engines, which never need the materialized Qd+-theta
-    # matrices — skipping them halves the dual's memory at large N
+    primal = gaussian_batch(N, M, B, seed)
+    # split-free geometry: this example only runs the XLA and mixed
+    # engines, which never need the materialized Qd+-theta matrices —
+    # skipping them halves the dual's memory at large N
     return primal, dualize(primal, materialize_splits=False)
 
 
@@ -64,19 +51,15 @@ def main():
     cfg = SolverConfig(max_iters=30000, check_every=16, accel_every=16,
                        strict_weak_duality=False,
                        gap_from_complementarity=True)
-    fence = jax.jit(lambda u: jnp.sum(u))
-
     # ALWAYS jit solve_mixed and pass (primal, dual) as arguments —
     # closed over, the bf16 geometry re-materializes per call
     runs = {"f32      ": jax.jit(partial(solve_batched, cfg=cfg)),
             "mixed    ": jax.jit(partial(solve_mixed, cfg=cfg))}
     out = {}
     for name, fn in runs.items():
-        r = fn(primal, dual)
-        float(fence(r.U))                      # compile + warm-up
+        jax.block_until_ready(fn(primal, dual))      # compile + warm-up
         t0 = time.perf_counter()
-        r = fn(primal, dual)
-        float(fence(r.U))                      # device-side fence
+        r = jax.block_until_ready(fn(primal, dual))
         out[name] = (time.perf_counter() - t0, r)
         print(f"{name}: {out[name][0]*1e3:8.1f} ms   "
               f"certified {int(np.asarray(r.converged).sum())}/{B}   "

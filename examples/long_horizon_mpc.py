@@ -38,9 +38,8 @@ def main() -> None:
         u_max=np.array([1.0], np.float32),
         du_max=np.array([0.5], np.float32))
 
-    # retry_cold compiles ONE solve instance at any horizon (the old
-    # lax.cond form crashed the TPU worker's compile at H=512;
-    # solver.retry_cold_solve is the fix)
+    # retry_cold compiles ONE solve instance at any horizon
+    # (solver.retry_cold_solve)
     ctrl = MPCController(spec, backend="stagewise", warm_start="shift",
                          retry_cold=True)
     assert ctrl.data is None          # the condensed blocks never exist

@@ -1,6 +1,7 @@
 """Monte-Carlo scenario fan-out: solve the MPC QP for thousands of
 initial states at once (BASELINE config 2/5 — the capability the
-single-instance reference lacks entirely).
+single-instance reference lacks entirely), on the example-shaped
+stand-in problem, through whichever engine ``solve_auto`` picks.
 
     python examples/scenario_batch.py [batch]
 """
@@ -13,35 +14,25 @@ import sys
 import time
 
 import jax
-import jax.numpy as jnp
-import numpy as np
 
-from pqp_for_mpc_tpu import SolverConfig, dualize
-from pqp_for_mpc_tpu.io import load_example_dir
+from pqp_for_mpc_tpu import SolverConfig, dualize, solve_auto
+from pqp_for_mpc_tpu.models.example import example_problem
 from pqp_for_mpc_tpu.utils.cache import enable_persistent_cache
 
 
 def main():
     enable_persistent_cache()
     B = int(sys.argv[1]) if len(sys.argv) > 1 else 8192
-    data = load_example_dir("/root/reference/example")
-    rng = np.random.default_rng(0)
-    x = np.asarray(data.x, np.float32)[:, None] + rng.normal(
-        0, 0.5, (data.x.shape[0], B)).astype(np.float32)
-    primal = data.assemble(x=jnp.asarray(x),
-                           Qp=jnp.linalg.inv(data.Qp_inv))
-    cfg = SolverConfig(max_iters=5000, check_every=8)
+    primal = example_problem(B, seed=0)
+    cfg = SolverConfig(max_iters=5000, check_every=8,
+                       strict_weak_duality=False,
+                       gap_from_complementarity=True)
     dual = dualize(primal)
+    solve = jax.jit(lambda p, d: solve_auto(p, d, cfg=cfg))
 
-    if jax.devices()[0].platform == "tpu":
-        from pqp_for_mpc_tpu.ops.solve_kernel import solve_fused as solve_b
-    else:
-        from pqp_for_mpc_tpu.solver import solve_batched as solve_b
-
-    res = solve_b(primal, dual, cfg=cfg)          # compile
+    jax.block_until_ready(solve(primal, dual))       # compile
     t0 = time.perf_counter()
-    res = solve_b(primal, dual, cfg=cfg)
-    jax.block_until_ready(res.U)
+    res = jax.block_until_ready(solve(primal, dual))
     dt = time.perf_counter() - t0
     print(res.stats())
     print(f"{B} scenarios in {dt*1e3:.1f} ms -> {B/dt:,.0f} solves/s")

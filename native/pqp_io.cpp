@@ -2,7 +2,7 @@
 // two on-disk formats of the reference project, plus the random-instance
 // generator.
 //
-// Re-provides, TPU-framework-side, the reference's native I/O surface:
+// Re-provides, framework-side, the reference's native I/O surface:
 //  * the example/ text format read by input() (PQP_CPU.c:757-930):
 //    whitespace-separated floats, '#' sentinel, files storing the
 //    TRANSPOSE of each logical matrix (column-major fill);

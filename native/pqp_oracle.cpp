@@ -5,7 +5,7 @@
 // re-implementation of the algorithm semantics of the reference CPU program
 // (PQP_CPU.c: dualization 440-498, theta 503-519, update 590-618,
 // termination 673-687, primal recovery 352-360), used by the test suite to
-// cross-validate the JAX/TPU solver on random instances where no golden
+// cross-validate the JAX solver on random instances where no golden
 // file exists.  This is a fresh implementation — row-major math notation,
 // std::vector storage, tolerances passed at runtime — not a copy of the
 // reference source.
@@ -161,13 +161,16 @@ extern "C" {
 //
 // Convergence test = the reference's terminate() semantics
 // (PQP_CPU.c:673-687): feasibility slack Kp + max(erc*Kp, eac) (no |Kp|),
-// then Jp <= -Jd, Jp+Jd <= eaj, (Jp+Jd)/|Jd| <= erj, all in f32.
+// then Jp <= -Jd (only when strict != 0, as SolverConfig.strict_weak_duality),
+// gap <= eaj, gap/|Jd| <= erj, all in f32.  The gap is Jp+Jd, or with
+// gap_comp != 0 the complementarity form Y'(Qd Y + Fd)
+// (SolverConfig.gap_from_complementarity).
 // iters_out follows the reference's counter convention: h starts at 1 and
 // the reported value is h at the first passing check (PQP_CPU.c:714-741).
 int pqp_oracle_solve(const float* qp_inv, const float* fp, float mp,
                      const float* gp, const float* kp, int N, int M,
                      float erc, float eac, float eaj, float erj,
-                     float theta_floor, float y0, long max_iters,
+                     float theta_floor, float y0, long max_iters, int strict, int gap_comp,
                      float* u_out, float* y_out, long* iters_out,
                      float* jp_out, float* jd_out) {
   const Vec Qp_inv(qp_inv, qp_inv + static_cast<size_t>(M) * M);
@@ -202,8 +205,13 @@ int pqp_oracle_solve(const float* qp_inv, const float* fp, float mp,
     if (feas) {
       Jd = cost(Y, d.Qd, d.Fd, d.Md, N);
       Jp = cost(U, Qp, Fp, mp, M);
-      const float gap = Jp + Jd;
-      if (!(Jp > -Jd) && !(gap > eaj) && !(gap / std::fabs(Jd) > erj)) {
+      float gap = Jp + Jd;
+      if (gap_comp) {
+        const Vec QdY = matmul(d.Qd, Y, N, N, 1);
+        gap = 0.0f;
+        for (int i = 0; i < N; ++i) gap += Y[i] * (QdY[i] + d.Fd[i]);
+      }
+      if (!(strict && Jp > -Jd) && !(gap > eaj) && !(gap / std::fabs(Jd) > erj)) {
         ok = true;
         break;
       }

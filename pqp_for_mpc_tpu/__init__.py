@@ -1,4 +1,4 @@
-"""pqp_for_mpc_tpu — a TPU-native Parallel Quadratic Programming (PQP) engine for linear MPC.
+"""pqp_for_mpc_tpu — a batched Parallel Quadratic Programming (PQP) engine for linear MPC.
 
 A from-scratch JAX/XLA/Pallas re-design of the capability surface of the reference
 CUDA/C project ``yashsoni501/PQP-for-MPC`` (Di Cairano & Brand multiplicative dual
@@ -10,8 +10,9 @@ update for the condensed-MPC QP; see reference ``pseudocode.txt:1-35``):
 * :mod:`pqp_for_mpc_tpu.solver`    — the PQP multiplicative-update solver
   (ref ``PQP_CPU.c:590-750``) as a ``lax.while_loop`` with batched instances,
   masked convergence and warm starting.
-* :mod:`pqp_for_mpc_tpu.ops`       — Pallas TPU kernels for the hot path (the
-  TPU rendition of the fused CUDA kernel ``PQP_Fusion.cu:772-846``).
+* :mod:`pqp_for_mpc_tpu.ops`       — the whole-solve GPU kernel (Pallas
+  through Triton) for small-N batches: the fused CUDA kernel
+  ``PQP_Fusion.cu:772-846`` extended across iterations and checks.
 * :mod:`pqp_for_mpc_tpu.models`    — LTI plant zoo + condensed-MPC matrix
   derivation and receding-horizon closed loop (the reference loads
   precomputed blocks; we derive them).

@@ -17,7 +17,7 @@ module exposes the same capabilities as subcommands of
   reference's ``while(h<NUM_ITER)`` timing loops
   (testing/CPU version/PQP_CPU_test.c:717).
 * ``bench-example``    — full-convergence batched solves/s on the
-  ``example/`` problem (BASELINE config 2; same as bench.py).
+  example-shaped stand-in problem on a GPU (same as bench.py).
 * ``rollout``          — receding-horizon closed loop on a model-zoo
   plant (BASELINE config 4).
 """
@@ -113,8 +113,7 @@ def cmd_solve_file(args) -> int:
         import jax
         from functools import partial
         from pqp_for_mpc_tpu.routing import route_solve, solve_auto
-        engine_used = (route_solve(dual.n_con, 1, False, cfg,
-                                   m_dim=primal.Gp.shape[-1])
+        engine_used = (route_solve(dual.n_con, 1, False, cfg)
                        if engine == "auto" else engine)
         r = jax.jit(partial(solve_auto, cfg=cfg, engine=engine_used))(
             primal, dual)
@@ -145,7 +144,6 @@ def cmd_bench(args) -> int:
     import jax.numpy as jnp
     from pqp_for_mpc_tpu.dual import dualize
     from pqp_for_mpc_tpu.io.generator import generate_instance, to_primal_arrays
-    from pqp_for_mpc_tpu.ops.kernels import fits_vmem, fused_pqp_iterations
     from pqp_for_mpc_tpu.problem import PrimalQP
     from pqp_for_mpc_tpu.solver import pqp_update
 
@@ -157,19 +155,11 @@ def cmd_bench(args) -> int:
                       Gp=jnp.asarray(gp), Kp=jnp.asarray(kp))
     dual = dualize(primal, theta_floor=100.0)  # harness floor (…test.c:240)
 
-    on_tpu = jax.devices()[0].platform == "tpu"
-    use_pallas = on_tpu and fits_vmem(N) and not args.no_pallas
     Y0 = jnp.full((N, B), 1000.0, jnp.float32)
-    Fdn = jnp.broadcast_to(dual.Fdn[:, None], (N, B))
-    Fdp = jnp.broadcast_to(dual.Fdp[:, None], (N, B))
 
-    if use_pallas:
-        run = jax.jit(lambda Y: fused_pqp_iterations(
-            dual.Qdn_theta, dual.Qdp_theta, Fdn, Fdp, Y, num_iters=iters))
-    else:
-        def body(_, Y):
-            return pqp_update(dual, Y, None, 1e-30)
-        run = jax.jit(lambda Y: jax.lax.fori_loop(0, iters, body, Y))
+    def body(_, Y):
+        return pqp_update(dual, Y, None, 1e-30)
+    run = jax.jit(lambda Y: jax.lax.fori_loop(0, iters, body, Y))
 
     jax.block_until_ready(run(Y0))          # compile
     times = []
@@ -186,7 +176,6 @@ def cmd_bench(args) -> int:
         "unit": f"updates/s (M={M} N={N} B={B})",
         "seconds": round(dt, 4),
         "tflops": round(flops / dt / 1e12, 2),
-        "kernel": "pallas" if use_pallas else "xla",
         # the reference's tiled-GPU harness ran ONE instance of this
         # workload in 1.674 s wall (Report, 'Analysis'); we run B of them
         # in `seconds`, so the single-workload speedup is 1.674/seconds
@@ -195,14 +184,14 @@ def cmd_bench(args) -> int:
         "speedup_vs_reference_gpu": round(1.674 / dt, 1),
         "throughput_speedup_vs_reference_gpu": round(1.674 / dt * B, 1),
         "platform": jax.devices()[0].platform,
+        "device_kind": jax.devices()[0].device_kind,
     }))
     return 0
 
 
 def cmd_bench_example(args) -> int:
-    # bench.py lives at the repo root (it is the driver's entry point,
-    # not part of the package); load it by path so this subcommand works
-    # from any cwd.
+    # bench.py lives at the repo root, not in the package; load it by
+    # path so this subcommand works from any cwd.
     import importlib.util
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     path = os.path.join(root, "bench.py")
@@ -210,11 +199,12 @@ def cmd_bench_example(args) -> int:
         print("bench.py not found (installed package without the repo); "
               "use `bench` for the fixed-iteration harness", file=sys.stderr)
         return 1
+    if root not in sys.path:
+        sys.path.insert(0, root)       # bench.py imports chip_smoke
     spec = importlib.util.spec_from_file_location("_pqp_bench", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    mod.main()
-    return 0
+    return mod.main()
 
 
 #: zoo entries constructible with no arguments (random_stable needs dims)
@@ -543,7 +533,7 @@ def cmd_serve(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="pqp_for_mpc_tpu",
-        description="TPU-native PQP engine for linear MPC")
+        description="Batched PQP engine for linear MPC")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("solve", help="solve a reference example/-format dir")
@@ -580,11 +570,10 @@ def main(argv=None) -> int:
     p.add_argument("--batch", type=int, default=128)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--repeats", type=int, default=3)
-    p.add_argument("--no-pallas", action="store_true")
     p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser("bench-example", help="full-convergence solves/s "
-                                             "on example/ (bench.py)")
+                                             "on one GPU (bench.py)")
     p.set_defaults(fn=cmd_bench_example)
 
     p = sub.add_parser("rollout", help="receding-horizon closed loop")

@@ -27,7 +27,7 @@ class SolverConfig:
     * ``y0`` — initial dual iterate value, ref ``PQP_CPU.c:710`` (``1000.0``).
     * ``max_iters`` — hard iteration cap.  The reference's root variants
       iterate unboundedly until convergence (``PQP_CPU.c:718``); a cap is the
-      principled TPU equivalent (static upper bound for the while loop when
+      principled equivalent (static upper bound for the while loop when
       needed, and divergence protection the reference lacks).
     * ``check_every`` — convergence-check cadence.  The reference checks
       every iteration (11 matmuls per check, ``PQP_CPU.c:673-687``).  The
@@ -36,10 +36,9 @@ class SolverConfig:
       and only coarsens the *reported* iteration count to a multiple of k.
     * ``unroll`` — how many multiplicative updates to fuse per while-loop
       body between checks (``check_every`` must be a multiple).
-    * ``precision`` — 'highest' for float32-parity with the C oracle,
-      'default' for fastest MXU path.
-    * ``use_pallas`` — route the hot loop through the fused Pallas kernel
-      when running on TPU.
+    * ``precision`` — 'highest' for float32 matrix products (parity
+      with the C oracle); 'default' lets the GPU take float32 products
+      in TF32 (about 10 mantissa bits) — faster, not a parity mode.
     """
 
     erc: float = 1e-6
@@ -65,7 +64,6 @@ class SolverConfig:
     # multipliers leave the absorbing state Y_i = 0.
     accel_every: int = 0
     precision: str = "highest"
-    use_pallas: bool = False
     # The reference's first gap test (``Jp > -Jd`` fails, PQP_CPU.c:682)
     # demands a numerically NON-POSITIVE duality gap; in exact arithmetic
     # the gap is >= 0, so passing relies on float32 rounding landing at or
@@ -94,8 +92,8 @@ class SolverConfig:
     # certification).  Off by default for reference conformance (the
     # golden 313-iteration parity pins the reference's exact float
     # program, computeCost PQP_CPU.c:648-666); MPC_CONFIG and
-    # stagewise_mpc_config enable it.  The fused whole-solve Pallas
-    # kernels always certify with the reference's explicit form.
+    # stagewise_mpc_config enable it.  The whole-solve GPU kernel
+    # honors it too.
     gap_from_complementarity: bool = False
     # Evaluate the feasibility residual through the operator-consistent
     # identity Gp U - Kp = -(Qd Y + Fd) (exact for the recovered U)
@@ -107,8 +105,8 @@ class SolverConfig:
     # violation of a "feasible" verdict drops ~an order of magnitude).
     # Off by default: the reference's checkFeas program is Gp U
     # (PQP_CPU.c:632-641) and golden conformance keeps it; MPC_CONFIG
-    # enables it.  XLA paths only — the Pallas whole-solve kernels keep
-    # the reference's in-kernel program.
+    # enables it.  XLA paths only — the whole-solve GPU kernel keeps the
+    # reference's program and does not take this flag.
     feas_from_dual_gradient: bool = False
     # Guard the reference's unguarded divide (``updY``, PQP_CPU.c:594).
     # Denominator (Qd^+ + theta) Y + Fd^+ is strictly positive for Y > 0 in
@@ -190,7 +188,9 @@ def stagewise_mpc_config(horizon: int) -> SolverConfig:
 
 #: Tolerances used by the reference's ``testing/`` benchmark harnesses
 #: (``testing/CPU version/PQP_CPU_test.c:19-24``): inert values so that the
-#: fixed-iteration loop isolates per-iteration kernel cost.
+#: fixed-iteration loop isolates per-iteration kernel cost.  It is a
+#: throughput harness only: ``precision="default"`` (TF32 on the GPU)
+#: is never a parity setting.
 BENCH_CONFIG = SolverConfig(
     erc=7.0, eac=1e5, eaj=1e5, erj=7.0, theta_floor=100.0, max_iters=100,
     precision="default",

@@ -1,11 +1,12 @@
 """Primal -> dual transform and the PQP matrix splits.
 
-TPU-native rendition of the reference's problem-build layer
+Batched rendition of the reference's problem-build layer
 (``convertToDual`` PQP_CPU.c:489-498, ``computeTheta`` PQP_CPU.c:503-519,
 ``computeQdp_theta``/``computeQdn_theta`` PQP_CPU.c:524-537 and the Fd split
 at PQP_CPU.c:703-704).  Everything is a handful of GEMMs and elementwise
-splits — exactly what XLA fuses and tiles onto the MXU; no Pallas needed
-here (the hot loop lives in :mod:`pqp_for_mpc_tpu.solver` / ``ops``).
+splits — exactly what XLA fuses and hands to its matrix libraries; no
+kernel needed here (the hot loop lives in :mod:`pqp_for_mpc_tpu.solver`
+/ ``ops``).
 """
 
 from __future__ import annotations
@@ -42,21 +43,18 @@ def dualize(primal: PrimalQP, theta_floor: float = 5.0,
     Batched ``Fp (M, B)`` / ``Mp (B,)`` yield batched ``Fd (N, B)`` /
     ``Md (B,)`` with the instance-invariant pieces (Qd, theta, Qd splits)
     shared — the key structure exploited by the batched solver: one
-    ``(N, N) @ (N, B)`` MXU matmul updates the whole batch.
+    ``(N, N) @ (N, B)`` matrix product updates the whole batch.
 
     ``materialize_splits=False`` skips the two ``Qd^{+/-} + theta``
     matrices — HALVING the geometry's memory (2 x N^2 f32; 536 MB at
     N=8192) — and the XLA solve computes the splits on the fly inside
-    the update's dot, which current XLA fuses into the SAME single
-    stream of Qd (measured round 5 at N=4096/highest: 48.3 ms vs the
-    materialized path's 49.9 ms per 64 updates — never slower).  The
-    float program differs from the materialized one only in where the
-    theta term accumulates (inside the dot vs a separate f32 add), so
-    razor-edge verdicts can flip at float-noise scale; the
-    reference-conformance default keeps materialized splits.  The
-    VMEM-resident Pallas kernels require materialized splits (they hold
-    them in VMEM); the HBM-tiled kernels and ``solve_mixed`` never
-    needed them.
+    the update's dot.  The float program differs from the materialized
+    one only in where the theta term accumulates (inside the dot vs a
+    separate f32 add), so razor-edge verdicts can flip at float-noise
+    scale; the reference-conformance default keeps materialized splits.
+    The whole-solve GPU kernel and row-sharded solves require
+    materialized splits; ``solve_batched`` and ``solve_mixed`` never
+    need them.
     """
     geom = dual_geometry(primal.Gp, primal.Qp_inv,
                          theta_floor=theta_floor, precision=precision,
@@ -121,14 +119,12 @@ def dualize_distinct(primal: PrimalQP, theta_floor: float = 5.0,
     Conventions: matrices carry a LEADING batch axis (``Qp (B, M, M)``,
     ``Gp (B, N, M)``), vectors a TRAILING one (``Fp (M, B)``,
     ``Kp (N, B)`` or shared ``(N,)``) — matching what
-    :func:`pqp_for_mpc_tpu.solver.solve_batched`'s einsum path and the
-    distinct-geometry Pallas kernels consume.
+    :func:`pqp_for_mpc_tpu.solver.solve_batched`'s einsum path consumes.
 
     ``materialize_splits=False`` skips the ``Qd^± + θ`` matrices
-    (``None`` in the result) — required at large N where each split is
-    ``B·N²·4`` bytes; the streamed kernel
-    (:mod:`pqp_for_mpc_tpu.ops.distinct_tiled_kernel`) reconstructs
-    them per slab and only needs ``Qd`` + ``theta``.
+    (``None`` in the result) — at large N each split is ``B·N²·4``
+    bytes, and ``solve_batched``/``solve_mixed`` only need ``Qd`` +
+    ``theta``.
     """
     p = _prec(precision)
     B = primal.Qp.shape[0]

@@ -70,6 +70,28 @@ def generate_instance(M: int, N: int, seed: int = 0,
     )
 
 
+def gaussian_batch(N: int, M: int, B: int, seed: int = 0):
+    """A shared-geometry batch of dense random QPs that certify: SPD
+    ``Qp = QQ' + M I``, gaussian ``Gp (N, M)``, ``Kp`` uniform [1, 10]
+    and ``B`` gaussian forcings ``Fp (M, B)``.  The large-N workload of
+    the examples and ``chip_smoke.py`` (the reference generator's
+    distributions above do not certify at N in the thousands).
+    Returns a :class:`~pqp_for_mpc_tpu.problem.PrimalQP`."""
+    import jax.numpy as jnp
+    from pqp_for_mpc_tpu.problem import PrimalQP
+
+    rng = np.random.default_rng(seed)
+    Q = rng.normal(0, 1, (M, M)).astype(np.float32)
+    Qp = Q @ Q.T + M * np.eye(M, dtype=np.float32)
+    return PrimalQP(
+        Qp=jnp.asarray(Qp),
+        Qp_inv=jnp.asarray(np.linalg.inv(Qp).astype(np.float32)),
+        Fp=jnp.asarray(rng.normal(0, 3, (M, B)).astype(np.float32)),
+        Mp=jnp.zeros((B,), jnp.float32),
+        Gp=jnp.asarray(rng.normal(0, 1, (N, M)).astype(np.float32)),
+        Kp=jnp.asarray(rng.uniform(1, 10, N).astype(np.float32)))
+
+
 def write_generator_file(path: str, inst: GeneratedQP) -> None:
     """Write an instance in the exact reference file layout."""
     with open(path, "w") as f:

@@ -17,7 +17,7 @@ control step compiles into one XLA graph:
 :meth:`RTIController.rollout` goes further and runs the CLOSED LOOP —
 relinearization, QP solve, and the true nonlinear plant propagation for
 every control step — inside one ``lax.scan`` dispatch, the same
-TPU-native structure as ``MPCController.rollout_jit`` but with the QP
+structure as ``MPCController.rollout_jit`` but with the QP
 itself rebuilt from fresh Jacobians each step.  Nothing in the
 reference's architecture (a main() per QP) can express this.
 

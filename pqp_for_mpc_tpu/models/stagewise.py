@@ -9,9 +9,8 @@ iteration by never materializing Qp, Qp^-1 or Qd:
 
 * ``Qp^-1 v`` is an unconstrained LQR solve — a Riccati-factored
   backward/forward pair of ``lax.scan``s over stages (the classic
-  banded-KKT elimination, expressed TPU-natively as scans with
-  ``(ns, B)`` carries so every step is a small MXU matmul over the
-  batch);
+  banded-KKT elimination, expressed as scans with ``(ns, B)`` carries
+  so every step is a small matrix product over the batch);
 * ``Qd Y = G Qp^-1 (G' Y)`` where G (box + slew rows, the layout of
   models/mpc.py input_constraints) is applied as shifts/sign-flips;
 * the PQP multiplicative update needs the ELEMENTWISE split
@@ -50,9 +49,9 @@ composition of affine maps ``x -> M_k x + c_k``, and affine composition
 is associative — so each depth-H ``lax.scan`` has an equivalent
 O(log H)-depth ``lax.associative_scan`` (Sarkka & Garcia-Fernandez,
 "Temporal parallelization of dynamic programming and linear quadratic
-control", IEEE TAC 2021).  On TPU this converts the per-PQP-iteration
-KKT solve from 2H latency-bound tiny-matmul steps into ~log2(H) rounds
-of batched ``(H, ns, ns)`` einsums that ride the MXU.
+control", IEEE TAC 2021).  This converts the per-PQP-iteration KKT
+solve from 2H latency-bound tiny-matmul steps into ~log2(H) rounds of
+batched ``(H, ns, ns)`` einsums.
 ``solve_stagewise(pscan=None)`` auto-enables it at H >= 64.
 """
 
@@ -207,8 +206,8 @@ def _affine_cumulative(Ms: jax.Array, cs: jax.Array, precision=None):
     Garcia-Fernandez, IEEE TAC 2021: LQR/Kalman recursions are
     compositions of affine maps, and affine-map composition is
     associative): a depth-H sequential recursion becomes log2(H)
-    rounds of batched ``(H, n, n)`` einsums — MXU-friendly instead of
-    latency-bound.  ``Ms (H, n, n)``, ``cs (H, n, B)``."""
+    rounds of batched ``(H, n, n)`` einsums instead of H latency-bound
+    steps.  ``Ms (H, n, n)``, ``cs (H, n, B)``."""
     def comb(a, b):
         Ma, ca = a
         Mb, cb = b
@@ -827,9 +826,9 @@ def stagewise_dual(spec: MPCSpec, theta_floor: float = 5.0,
     if pscan is None:
         # measured: the SEQUENTIAL scans win at build time (unlike the
         # solve) — the build batches O(H) columns through each scan, so
-        # the MXU is already fed and the associative form's (H, ns, B)
-        # intermediates only add memory traffic (97 s vs 213 s at H=512
-        # on the CPU backend)
+        # the matrix units are already fed and the associative form's
+        # (H, ns, B) intermediates only add memory traffic (97 s vs
+        # 213 s at H=512 on the CPU backend)
         pscan = False
 
     blk = _dual_blocks(f, has_y, pscan)
@@ -975,7 +974,8 @@ def solve_stagewise(dual: StagewiseDual, x0: jax.Array,
 
     ``pscan`` selects the temporal-parallel (associative-scan) KKT
     recursions; ``None`` = auto (on for H >= 64, where the depth-H
-    sequential scans dominate the iteration latency).
+    sequential scans dominate the iteration latency; the crossover is
+    not yet measured on the GPU, ROADMAP D4).
     """
     f = dual.factor
     H, nu = f.H, f.nu

@@ -62,7 +62,7 @@ def _oracle():
             _f32p, _f32p, ctypes.c_float, _f32p, _f32p,
             ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-            ctypes.c_float, ctypes.c_float, ctypes.c_long,
+            ctypes.c_float, ctypes.c_float, ctypes.c_long, ctypes.c_int, ctypes.c_int,
             _f32p, _f32p, ctypes.POINTER(ctypes.c_long),
             ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
         ]
@@ -77,8 +77,13 @@ def _oracle():
 
 
 def oracle_solve(qp_inv, fp, mp, gp, kp, *, erc=1e-6, eac=1e-6, eaj=1e-6,
-                 erj=1e-6, theta_floor=5.0, y0=1000.0, max_iters=200_000):
-    """Run the C++ float32 oracle on one dense instance.
+                 erj=1e-6, theta_floor=5.0, y0=1000.0, max_iters=200_000,
+                 strict=True, gap_comp=False):
+    """Run the C++ float32 oracle on one dense instance.  ``strict``
+    keeps the reference's weak-duality test ``Jp <= -Jd``
+    (``SolverConfig.strict_weak_duality``); ``gap_comp`` certifies the
+    complementarity gap ``Y'(Qd Y + Fd)``
+    (``SolverConfig.gap_from_complementarity``).
 
     Returns dict with U, Y, iters, Jp, Jd, converged.
     """
@@ -96,7 +101,7 @@ def oracle_solve(qp_inv, fp, mp, gp, kp, *, erc=1e-6, eac=1e-6, eaj=1e-6,
     jd = ctypes.c_float(0)
     rc = lib.pqp_oracle_solve(
         qp_inv, fp, float(mp), gp, kp, N, M,
-        erc, eac, eaj, erj, theta_floor, y0, max_iters,
+        erc, eac, eaj, erj, theta_floor, y0, max_iters, int(strict), int(gap_comp),
         U, Y, ctypes.byref(iters), ctypes.byref(jp), ctypes.byref(jd))
     if rc < 0:
         raise RuntimeError("oracle: singular Qp_inv")

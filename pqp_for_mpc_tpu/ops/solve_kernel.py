@@ -1,41 +1,43 @@
-"""Whole-solve Pallas kernel: the entire PQP solve — multiplicative
-updates, periodic four-part termination check, early exit, primal
-recovery — in ONE kernel launch per batch block.
+"""Whole-solve GPU kernel: the entire batched PQP solve — multiplicative
+updates, the periodic four-part termination check, divergence freeze
+and early exit — in ONE kernel launch, written for Pallas through Triton.
 
-Rationale: for example-sized problems (N=28 dual) the per-iteration math
-is trivial (two 32x32 matvecs per lane block); the measured cost of the
-two-kernel design (fused update kernel + XLA check phases, relaunched
-every ``check_every`` iterations) is dominated by launch/HBM round-trips
-— ~26 ms for a B=8192 batch where the update FLOPs need ~0.2 ms.  This
-kernel keeps *all* problem matrices and panels resident in VMEM for the
-whole solve and runs an in-kernel ``lax.while_loop`` with the same
-masked-convergence semantics as :func:`pqp_for_mpc_tpu.solver.solve_batched`.
+Why a kernel: for example-sized problems (N=28 dual) each update is two
+``(N, N) @ (N, B)`` products of about 7 flop per byte of ``Y``/``Fd``
+traffic, so the XLA loop in :func:`pqp_for_mpc_tpu.solver.solve_batched`
+streams the lane panels through device memory on every update, and
+returns its ``all(done)`` predicate to the host on every check.  Here
+one program owns a block of lanes for the whole solve: the matrices are
+read from cache, the iterate stays in registers, and the panels are
+read once per solve.  Measured on one H100 (700 W) at the example shape
+(N=28, B=1,048,576, 555 iterations): 0.244 s against 0.461 s for
+``solve_batched``.  The reference's best CUDA variant fuses one update's
+two matvecs into one launch (``matrixMultiplyCuda_computeupdateY2``,
+PQP_Fusion.cu:772-846) and still pays a launch per update plus two
+blocking copies per check.
 
-This is the TPU endpoint of the reference's fusion ladder: its best
-variant fuses one update's two matvecs into one launch
-(``matrixMultiplyCuda_computeupdateY2``, PQP_Fusion.cu:772-846) and its
-test harness sketches a fused primal-recovery kernel
-(``matrixMultiplyCuda_computeU``, testing/GPU Coarsened/…:542-620, never
-launchable due to a grid bug); a CUDA grid cannot fuse *across*
-iterations or checks, a Mosaic kernel can.
+Semantics are those of ``solve_batched`` with ``accel_every=0``: the
+same check-then-``check_every``-updates body, the same per-lane freeze
+on certification or a non-finite iterate, and the same iteration
+stamps, so both engines certify the same lanes at the same counts up to
+float reduction order.  The exit diagnostics (``U``, costs,
+feasibility, the exit-time verdict) come from the XLA helpers, which
+keeps one source of truth for them.
 
-Restrictions: shared (instance-invariant) Qd/Gp geometry; N and M padded
-to sublane quanta must fit VMEM alongside the panels (true for N up to a
-few hundred); tolerances and cadence are compile-time constants.
+Restrictions (:func:`fused_supports` is the test): shared geometry
+(2-D ``Qd``) with materialized splits, ``N <= MAX_FUSED_N``, no
+acceleration, and the reference's forcing-scale feasibility program
+(not ``feas_from_dual_gradient``).
 
-Shapes (all float32):
-  Qdn_theta, Qdp_theta, Qd : (N, N)      Gp : (N, M)
-  Qp, Qp_inv               : (M, M)
-  Fp : (M, B)   Fd, Fdp, Fdn : (N, B)    Kp_slack : (N, 1) or (N, B)
-  Mp, Md : (B,)                          Y0 : (N, B)
-``Kp_slack`` may be per-lane (state-dependent output constraints,
-problem.py Kx/Kd path) — it is streamed as a panel like Fd.
-Outputs of :func:`fused_full_solve`:
-  Y (N, B), U = -Qp^-1(Fp+Gp'Y) (M, B), iters (B,) int32, and a per-lane
-  f32 STATE CODE (not a bool): 0 = hit max_iters while active,
-  1 = certified by the in-kernel termination test, 2 = stall-frozen at a
-  fixed point without certificate, 3 = batch padding.  Use
-  :func:`solve_fused` unless you want to interpret the codes yourself.
+Padding: Triton's ``dot`` needs every dimension of its right operand to
+be >= 16 and block shapes to be powers of two, so N and M are padded to
+powers of two >= 16.  Padded dual coordinates have an identity diagonal
+in both splits, zero forcing and ``Y = 1``: an exact fixed point of the
+update that adds 0 to every reduction.  Padded lanes start frozen.
+
+Precision: on this route an f32 ``dot`` at default precision lowers to
+TF32 (about 10 mantissa bits); ``precision="highest"`` is passed
+explicitly and lowers to IEEE float32 FMA.
 """
 
 from __future__ import annotations
@@ -46,445 +48,187 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-from pqp_for_mpc_tpu.ops.kernels import (_LANE, _SUBLANE, _round_up,
-                                         VMEM_LIMIT_BYTES)
+#: largest dual dimension the kernel takes.  Measured on one H100 (700 W)
+#: at B=262,144 against solve_batched: N=64 1.23x faster, N=128 at best
+#: 0.05x (every lane block and warp count tried spills); larger N stays
+#: on XLA, whose update is then a GEMM
+MAX_FUSED_N = 64
 
-#: operand-footprint budget (see kernels.py for the empirical 1.8x rule
-#: and the raised Mosaic scoped-vmem limit)
-VMEM_OPERAND_BUDGET = 40 * 1024 * 1024
+#: smallest extent of a Triton ``dot`` operand
+_MIN_DOT = 16
 
-
-#: Cap on the per-grid-step batch block.  Historical note: the original
-#: design carried Y/masks through the scf.while (large vector carries
-#: fail Mosaic legalization or spill); the sweep on v5e at N=28/B=8192
-#: gave 512 -> 245k solves/s, 1024 -> 3.23M, 2048 -> 261k, 4096 -> 234k
-#: — and 1024 was kept after the state moved to VMEM scratch.  Round 5
-#: re-swept on the CURRENT kernel at the headline workload (example/
-#: problem, full convergence, B = 8.4M): 1024 -> 8.71M solves/s,
-#: 2048 -> 10.49M, 4096 -> 11.20M, 8192 -> 11.51M, 16384 -> 11.67M
-#: (diminishing; the VMEM budget caps ~17.6k lanes at N=28) — the
-#: old cliff was an artifact of the while-carry design, and the wider
-#: block amortizes the per-block fixed cost (matrix re-load + check
-#: machinery) over more lanes.  The cap matters only for small N: from
-#: N ~ 256 the VMEM-budget term of solve_kernel_batch_block binds
-#: first.
-MAX_SOLVE_BLOCK_B = 16384
+# lane-state codes returned by the kernel
+ACTIVE, CERTIFIED, DIVERGED, PADDING = 0, 1, 2, 3
 
 
-def solve_kernel_batch_block(n_pad: int, m_pad: int, b_pad: int,
-                             budget: int = VMEM_OPERAND_BUDGET) -> int:
-    mats = (3 * n_pad * n_pad + n_pad * m_pad + 2 * m_pad * m_pad) * 4
-    avail = budget - mats
-    if avail <= 0:
-        return 0
-    # panels per lane: Fp(M), Fd/Fdp/Fdn/Kps/Y0/Y-out(N)x6, U-out(M),
-    # Mp/Md/valid/iters/done 8-row tiles (5x8), plus 3 (N, bb) VMEM
-    # scratch buffers (y/done/iters state)
-    per_lane = (2 * m_pad + 6 * n_pad + 5 * 8) * 4 * 2 \
-        + 3 * n_pad * 4                              # x2 double-buffer
-    bb = avail // per_lane
-    bb = (bb // _LANE) * _LANE
-    # vreg-pressure cap: the update chain works on ~3 (N, bb) f32
-    # tensors at (n/8)*(bb/128) vregs each.  The round-5 sweep showed
-    # the old 256-vreg budget was over-conservative in the small-N
-    # regime (N=28: bb grew 1024 -> 16384 with monotone throughput
-    # gains, 8.7M -> 11.7M solves/s — Mosaic tiles the loop body fine),
-    # so small N gets an 8x budget.  The enlarged blocks at the other
-    # small sizes were validated on-chip post-raise (N=64/128, B=8192:
-    # bb 10880/5376, parity + throughput vs the XLA path in
-    # benchmarks/BLOCK_VALIDATE_r5.json); conformance's B=128 rows are
-    # unaffected (bb is capped by b_pad=128 there).  Larger N keeps the
-    # conservative cap its configs were measured at.
-    if n_pad <= 128:
-        vreg_budget = 2048 * 1024
-        vreg_cap = max(_LANE, (vreg_budget // (3 * n_pad))
-                       // _LANE * _LANE)
-    elif n_pad <= 512:
-        # mid band re-swept round 5 at B=32768: N=256 runs 0.413 s at
-        # the old 256-lane cap, 0.396 s at 1024 (+4%); N=512 2.11 s vs
-        # 2.06-2.09 s at 512-1024 (wash-to-+2%) — the per-block fixed
-        # cost matters less as the per-iteration matvec grows
-        vreg_cap = 8 * _LANE
-    else:
-        vreg_budget = 256 * 1024
-        vreg_cap = max(_LANE, (vreg_budget // (3 * n_pad))
-                       // _LANE * _LANE)
-    cap = min(bb, b_pad, MAX_SOLVE_BLOCK_B, vreg_cap)
-    # The grid rounds b_pad UP to a multiple of the block
-    # (fused_full_solve), and every padded lane runs the full
-    # per-iteration matvec — a block larger than the batch quantum can
-    # waste most of the launch (e.g. B=1100 at a 1024 block pads to
-    # 2048: 86% dead lanes).  Shrink the block until padding stays
-    # under ~12.5% of the batch; _LANE always satisfies it (<=127
-    # padded lanes).  Exact-multiple workloads (the swept
-    # B=32768/8.4M configs) keep the full cap.
-    c = cap
-    while c > _LANE:
-        pad = -(-b_pad // c) * c - b_pad
-        if pad * 8 <= b_pad:
-            break
-        c = (c // 2) // _LANE * _LANE
-    return max(0, c)
+def _pad_dim(n: int) -> int:
+    return max(_MIN_DOT, pl.next_power_of_2(n))
 
 
-def _kernel(cfg_tuple, nm, qdn_ref, qdp_ref, qd_ref, gp_ref, qp_ref,
-            qpi_ref, fp_ref, fd_ref, fdp_ref, fdn_ref, kps_ref, mp_ref,
-            md_ref, y0_ref, valid_ref, y_out, u_out, it_out, done_out,
-            y_scr, done_scr, it_scr):
-    (max_iters, check_every, accel_every, eaj, erj, strict, den_eps,
-     precision, gap_comp) = cfg_tuple
-    N, M = nm
-    qdn = qdn_ref[:]
-    qdp = qdp_ref[:]
-    qd = qd_ref[:]
-    gp = gp_ref[:]
-    qp = qp_ref[:]
-    qpi = qpi_ref[:]
-    fp = fp_ref[:]
-    fd = fd_ref[:]
-    fdp = fdp_ref[:]
-    fdn = fdn_ref[:]
-    kps = kps_ref[:]          # slack-augmented Kp panel (N, B)
-    mp = mp_ref[0:1, :]       # row-replicated (8, B) inputs; use row 0
-    md = md_ref[0:1, :]
+def launch_shape(n_pad: int) -> tuple[int, int]:
+    """(lanes per program, warps per program) for a padded dual of
+    ``n_pad`` rows.  Swept on one H100 (700 W), N=28 at B=262,144: 16
+    lanes per warp ran 0.063-0.073 s, 32 lanes per warp 0.89-1.48 s
+    (XLA 0.135 s); N=64: only 16 lanes on 4 warps beat XLA."""
+    return (64, 4) if n_pad <= 32 else (16, 4)
+
+
+def fused_supports(dual, cfg) -> bool:
+    """Whether :func:`solve_fused` takes this problem and configuration."""
+    return (dual.Qd.ndim == 2 and dual.Qdn_theta is not None
+            and dual.n_con <= MAX_FUSED_N and not cfg.accel_every
+            and not cfg.feas_from_dual_gradient)
+
+
+def _kernel(qdn_ref, qdp_ref, qd_ref, gpt_ref, gp_ref, qp_ref, qpi_ref,
+            fp_ref, fd_ref, kps_ref, mp_ref, md_ref, y0_ref,
+            y_out, it_out, st_out, *, n_lanes, cfg):
+    from pqp_for_mpc_tpu.solver import termination_fail
 
     f32 = jnp.float32
-    # precision choice: see distinct_kernel.py — default bf16 MXU passes
-    # are fine on well-conditioned problems, "highest" forces f32 passes
-    prec = (jax.lax.Precision.HIGHEST if precision == "highest" else None)
-    dot = lambda a, b: jnp.dot(a, b, preferred_element_type=f32,
-                               precision=prec)
+    bb = y0_ref.shape[1]
+    prec = lax.Precision.HIGHEST if cfg.precision == "highest" else None
+    dot = lambda a, b: jnp.dot(a, b, precision=prec,
+                               preferred_element_type=f32)
+    count = lambda m: jnp.sum(m.astype(f32), axis=0)
 
-    def one_update(y, done):
-        num = dot(qdn, y) + fdn
-        den = dot(qdp, y) + fdp
-        if den_eps:
-            den = jnp.maximum(den, den_eps)
-        yn = (num / den) * y
-        return jnp.where(done, y, yn)
+    def update(y, active):
+        fd = fd_ref[...]
+        num = dot(qdn_ref[...], y) + jnp.maximum(-fd, 0.0)
+        den = dot(qdp_ref[...], y) + jnp.maximum(fd, 0.0)
+        if cfg.den_eps:
+            den = jnp.maximum(den, cfg.den_eps)
+        return jnp.where(active[None, :], (num / den) * y, y)
 
-    def accel(y, done):
-        grad = dot(qd, y) + fd
-        p = jnp.where((y > 0.0) | (grad < 0.0), -grad, 0.0)
-        pQp = jnp.sum(p * dot(qd, p), axis=0, keepdims=True)
-        alpha = jnp.where(pQp > 0,
-                          jnp.sum(p * p, axis=0, keepdims=True)
-                          / jnp.maximum(pQp, 1e-30), 0.0)
-        yn = jnp.maximum(y + alpha * p, 0.0)
-        fY = 0.5 * jnp.sum(y * (grad + fd), axis=0, keepdims=True)
-        fYn = (0.5 * jnp.sum(yn * dot(qd, yn), axis=0, keepdims=True)
-               + jnp.sum(fd * yn, axis=0, keepdims=True))
-        keep = (fYn <= fY) & jnp.logical_not(done)
-        return jnp.where(keep, yn, y)
-
-    def check(y):
-        u = -dot(qpi, dot(gp.T, y) + fp)                      # (M, B)
-        gpu = dot(gp, u)
-        nviol = jnp.sum((gpu > kps).astype(f32), axis=0, keepdims=True)
-        feas = nviol == 0.0
-        qdy = dot(qd, y)
-        s1 = jnp.sum(y * qdy, axis=0, keepdims=True)          # Y'QdY
-        s2 = jnp.sum(fd * y, axis=0, keepdims=True)           # Fd'Y
-        jd = 0.5 * s1 + s2 + 0.5 * md
-        jp = (0.5 * jnp.sum(u * dot(qp, u), axis=0, keepdims=True)
-              + jnp.sum(fp * u, axis=0, keepdims=True) + 0.5 * mp)
-        if gap_comp:
-            # complementarity identity Jp(U(Y)) + Jd(Y) = Y'(Qd Y + Fd)
-            # (SolverConfig.gap_from_complementarity): both reductions
-            # are already here for Jd, so the better-conditioned gap is
-            # free in-kernel; weak duality becomes gap > 0 on it
-            gap = s1 + s2
-            weak_fail = gap > 0.0
-        else:
-            gap = jp + jd
-            weak_fail = jp > -jd
-        fail = (jnp.logical_not(feas) | (gap > eaj)
-                | (gap / jnp.abs(jd) > erj))
-        if strict:
-            fail = fail | weak_fail
-        return jnp.logical_not(fail), u
-
-    n_chunks = max(1, check_every // max(accel_every, 1)) \
-        if accel_every else 1
-
-    # Mosaic miscompiles scf.while with large vector carries (verified on
-    # v5e: the fori-only update kernel is bit-exact at N=512 while the
-    # same math inside a while with (N, B) carries silently corrupts most
-    # lanes; 1-row and i1 carries don't even legalize).  So ALL vector
-    # state lives in VMEM scratch refs mutated by the body, and the while
-    # carries exactly two f32 scalars (h, unsolved-count).
-    NB = y0_ref.shape
-    full = lambda row: jnp.broadcast_to(row, NB)       # (1,B) -> (N,B)
-
-    # Lane state encoding in done_scr: 0 = active, 1 = CERTIFIED (the
-    # in-kernel termination test passed — the reference's own notion of
-    # convergence, with the kernel's arithmetic), 2 = STALLED (frozen at
-    # a fixed point without a certificate), 3 = padded/invalid lane.
-    y_scr[:] = y0_ref[:]
-    done_scr[:] = jnp.where(full(valid_ref[0:1, :] == 0.0), f32(3.0),
-                            f32(0.0))
-    it_scr[:] = jnp.zeros(NB, f32)
+    def certified(y):
+        fp = fp_ref[...]
+        fd = fd_ref[...]
+        u = -dot(qpi_ref[...], dot(gpt_ref[...], y) + fp)
+        # ~(a <= b) counts NaN as a violation, as jnp.all(a <= b) does
+        feas = count(~(dot(gp_ref[...], u) <= kps_ref[...])) == 0.0
+        qdy = dot(qd_ref[...], y)
+        jd = (0.5 * jnp.sum(y * qdy, axis=0) + jnp.sum(fd * y, axis=0)
+              + 0.5 * md_ref[...])
+        jp = (0.5 * jnp.sum(u * dot(qp_ref[...], u), axis=0)
+              + jnp.sum(fp * u, axis=0) + 0.5 * mp_ref[...])
+        gap = (jnp.sum(y * (qdy + fd), axis=0)
+               if cfg.gap_from_complementarity else None)
+        return ~termination_fail(feas, jp, jd, cfg, gap)
 
     def body(carry):
-        h, _ = carry
-        y = y_scr[:]
-        st = done_scr[:]
-        done = st > 0.0
-        iters_f = it_scr[:]
-        ok_row, _ = check(y)
-        ok = full(ok_row)
-        newly = ok & jnp.logical_not(done)
-        iters_f = jnp.where(newly, h, iters_f)
-        st = jnp.where(newly, f32(1.0), st)
-        done = done | ok
-        y_prev = y
-        if accel_every:
-            def chunk(_, yc):
-                yc = lax.fori_loop(
-                    0, accel_every, lambda _, z: one_update(z, done), yc)
-                return accel(yc, done)
-            y = lax.fori_loop(0, n_chunks, chunk, y)
-        else:
-            y = lax.fori_loop(0, check_every,
-                              lambda _, z: one_update(z, done), y)
-        # Stall freeze: a lane whose iterate is bit-identical after a
-        # whole block is at a fixed point (e.g. Y underflowed to the
-        # all-zero absorbing state on an interior optimum); if its check
-        # just failed it will fail forever — stop burning iterations.
-        stalled = full(jnp.sum(jnp.abs(y - y_prev), axis=0,
-                               keepdims=True) == 0.0)
-        newly_stalled = stalled & (st == 0.0)
-        iters_f = jnp.where(newly_stalled, h + f32(check_every), iters_f)
-        st = jnp.where(newly_stalled, f32(2.0), st)
-        y_scr[:] = y
-        done_scr[:] = st
-        it_scr[:] = iters_f
-        unsolved = jnp.sum((st[0:1, :] == 0.0).astype(f32))
-        return (h + f32(check_every), unsolved)
+        h, y, st, it = carry
+        active = st == ACTIVE
+        bad = (count(~jnp.isfinite(y)) > 0.0) & active
+        ok = certified(y) & active & ~bad
+        it = jnp.where(ok | bad, h, it)
+        st = jnp.where(ok, CERTIFIED, jnp.where(bad, DIVERGED, st))
+        active = st == ACTIVE
+        y = lax.fori_loop(0, cfg.check_every,
+                          lambda _, z: update(z, active), y)
+        return h + cfg.check_every, y, st, it
 
     def cond(carry):
-        h, unsolved = carry
-        return jnp.logical_and(unsolved > 0.0, h <= f32(max_iters))
+        h, _, st, _ = carry
+        n_active = jnp.sum((st == ACTIVE).astype(jnp.int32))
+        return (n_active > 0) & (h <= cfg.max_iters)
 
-    h, _ = lax.while_loop(cond, body, (f32(1.0), f32(1.0)))
-
-    y = y_scr[:]
-    st = done_scr[:]
-    iters_f = it_scr[:]
-    ok_row, u = check(y)
-    ok = full(ok_row)
-    newly = ok & (st == 0.0)
-    iters_f = jnp.where(newly, h, iters_f)
-    st = jnp.where(newly, f32(1.0), st)
-    iters_f = jnp.where(st > 0.0, iters_f, h)
-    y_out[:] = y
-    u_out[:] = u
-    # 1-row (1, B) outputs hit the same Mosaic pathology; write full
-    # sublane tiles of the row-replicated masks and slice host-side.
-    it_out[:] = iters_f[0:it_out.shape[0], :]
-    done_out[:] = st[0:done_out.shape[0], :]
-
-
-@functools.partial(
-    jax.jit, static_argnames=("max_iters", "check_every", "accel_every",
-                              "eaj", "erj", "strict", "den_eps",
-                              "precision", "gap_comp", "interpret",
-                              "block_b"))
-def fused_full_solve(Qdn_theta, Qdp_theta, Qd, Gp, Qp, Qp_inv,
-                     Fp, Fd, Fdp, Fdn, Kp_slack, Mp, Md, Y0,
-                     *, max_iters: int, check_every: int,
-                     accel_every: int = 0, eaj: float = 1e-6,
-                     erj: float = 1e-6, strict: bool = True,
-                     den_eps: float = 1e-30, precision: str = "highest",
-                     gap_comp: bool = False,
-                     interpret: bool = False,
-                     block_b: int | None = None):
-    """Run the full batched PQP solve in one Pallas launch.
-
-    ``Kp_slack`` is the pre-slackened feasibility threshold
-    ``Kp + max(erc*Kp, eac)`` (compare, PQP_CPU.c:334-343).
-    Returns ``(Y, U, iters, done)`` with batch padding stripped.
-    """
-    N, B = Y0.shape
-    M = Fp.shape[0]
-    n_pad = _round_up(max(N, _SUBLANE), _SUBLANE)
-    m_pad = _round_up(max(M, _SUBLANE), _SUBLANE)
-    b_pad = _round_up(max(B, _LANE), _LANE)
-    bb = block_b if block_b is not None else \
-        solve_kernel_batch_block(n_pad, m_pad, b_pad)
-    if bb <= 0:
-        raise ValueError(f"fused_full_solve: N={N}, M={M} exceed the VMEM "
-                         "operand budget; use solve_batched")
-    b_pad = _round_up(b_pad, bb)
-
-    dn, dm, db = n_pad - N, m_pad - M, b_pad - B
-    f32 = jnp.float32
-
-    def pad_nn(A, diag=1.0):
-        if not dn:
-            return A
-        out = jnp.zeros((n_pad, n_pad), f32).at[:N, :N].set(A)
-        if diag:
-            out = out.at[jnp.arange(N, n_pad), jnp.arange(N, n_pad)].set(diag)
-        return out
-
-    def pad_mm(A, diag=1.0):
-        if not dm:
-            return A
-        out = jnp.zeros((m_pad, m_pad), f32).at[:M, :M].set(A)
-        if diag:
-            out = out.at[jnp.arange(M, m_pad), jnp.arange(M, m_pad)].set(diag)
-        return out
-
-    # Padded dual coordinates: identity diagonal + zero forcing + Y0=1 =>
-    # exact fixed point of the update (num=den=1).  They contribute 0 to
-    # every reduction because their Fd/Fp/Gp entries are 0 and U padding
-    # follows -Qp^-1*0 = 0.  Padded *batch* lanes are pre-marked state 3
-    # via the ``valid`` mask — they never certify and never gate the
-    # while loop's unsolved count.
-    Qdn_theta = pad_nn(Qdn_theta)
-    Qdp_theta = pad_nn(Qdp_theta)
-    Qd_p = pad_nn(Qd, diag=0.0)
-    Gp_p = jnp.zeros((n_pad, m_pad), f32).at[:N, :M].set(Gp) \
-        if (dn or dm) else Gp
-    Qp_p = pad_mm(Qp)
-    Qpi_p = pad_mm(Qp_inv)
-    Fp_p = jnp.pad(Fp, ((0, dm), (0, db)))
-    Fd_p = jnp.pad(Fd, ((0, dn), (0, db)))
-    Fdp_p = jnp.pad(Fdp, ((0, dn), (0, db)))
-    Fdn_p = jnp.pad(Fdn, ((0, dn), (0, db)))
-    # Kp slack as a per-lane panel (padded coords/lanes never violate)
-    Kps_p = jnp.pad(jnp.broadcast_to(Kp_slack.reshape(N, -1), (N, B)),
-                    ((0, dn), (0, db)), constant_values=jnp.inf)
-    # row-replicated to full sublane tiles: 1-row VMEM operands hit the
-    # Mosaic odd-layout pathologies at larger N
-    row8 = lambda v: jnp.broadcast_to(
-        jnp.pad(v.reshape(1, B), ((0, 0), (0, db))), (_SUBLANE, b_pad))
-    Mp_p = row8(Mp)
-    Md_p = row8(Md)
-    Y0_p = jnp.pad(Y0, ((0, dn), (0, db)), constant_values=1.0)
-    valid = jnp.broadcast_to(
-        jnp.pad(jnp.ones((1, B), f32), ((0, 0), (0, db))),
-        (_SUBLANE, b_pad))
-
-    grid = (b_pad // bb,)
-    rep = lambda r, c: pl.BlockSpec((r, c), lambda b: (0, 0),
-                                    memory_space=pltpu.VMEM)
-    panel = lambda r: pl.BlockSpec((r, bb), lambda b: (0, b),
-                                   memory_space=pltpu.VMEM)
-
-    cfg_tuple = (max_iters, check_every, accel_every, eaj, erj, strict,
-                 den_eps, precision, gap_comp)
-    y, u, iters, done = pl.pallas_call(
-        functools.partial(_kernel, cfg_tuple, (n_pad, m_pad)),
-        grid=grid,
-        in_specs=[rep(n_pad, n_pad), rep(n_pad, n_pad), rep(n_pad, n_pad),
-                  rep(n_pad, m_pad), rep(m_pad, m_pad), rep(m_pad, m_pad),
-                  panel(m_pad), panel(n_pad), panel(n_pad), panel(n_pad),
-                  panel(n_pad), panel(_SUBLANE), panel(_SUBLANE),
-                  panel(n_pad), panel(_SUBLANE)],
-        out_specs=[panel(n_pad), panel(m_pad), panel(_SUBLANE),
-                   panel(_SUBLANE)],
-        out_shape=[jax.ShapeDtypeStruct((n_pad, b_pad), f32),
-                   jax.ShapeDtypeStruct((m_pad, b_pad), f32),
-                   jax.ShapeDtypeStruct((_SUBLANE, b_pad), f32),
-                   jax.ShapeDtypeStruct((_SUBLANE, b_pad), f32)],
-        scratch_shapes=[pltpu.VMEM((n_pad, bb), f32),
-                        pltpu.VMEM((n_pad, bb), f32),
-                        pltpu.VMEM((n_pad, bb), f32)],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=VMEM_LIMIT_BYTES),
-        interpret=interpret,
-    )(Qdn_theta, Qdp_theta, Qd_p, Gp_p, Qp_p, Qpi_p, Fp_p, Fd_p, Fdp_p,
-      Fdn_p, Kps_p, Mp_p, Md_p, Y0_p, valid)
-    # ``done`` carries the lane-state code: 0 active (hit max_iters),
-    # 1 certified by the in-kernel check, 2 stall-frozen, 3 padding.
-    return (y[:N, :B], u[:M, :B], iters[0, :B].astype(jnp.int32),
-            done[0, :B])
+    lane = pl.program_id(0) * bb + jnp.arange(bb, dtype=jnp.int32)
+    st0 = jnp.where(lane < n_lanes, ACTIVE, PADDING).astype(jnp.int32)
+    it0 = jnp.zeros((bb,), jnp.int32)
+    h, y, st, it = lax.while_loop(
+        cond, body, (jnp.int32(1), y0_ref[...], st0, it0))
+    y_out[...] = y
+    it_out[...] = jnp.where(st == ACTIVE, h, it)
+    st_out[...] = st
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "interpret"))
 def solve_fused(primal, dual, Y0=None, cfg=None, interpret: bool = False):
-    """Drop-in analog of :func:`pqp_for_mpc_tpu.solver.solve_batched`
-    running the whole solve in one Pallas launch (shared-geometry batches
-    only).  Returns a :class:`~pqp_for_mpc_tpu.solver.SolveResult`; the
-    exit-time costs/feasibility are recomputed with the XLA helpers
-    (fused into the same jit, so one dispatch covers everything)."""
-    import jax.numpy as jnp
-
+    """Drop-in for :func:`pqp_for_mpc_tpu.solver.solve_batched` on a
+    shared-geometry batch (see :func:`fused_supports`), running the
+    whole solve in one kernel launch.  ``interpret=True`` runs the
+    kernel in the Pallas interpreter (tests on a machine without a
+    GPU).  Returns a :class:`~pqp_for_mpc_tpu.solver.SolveResult`."""
     from pqp_for_mpc_tpu.config import SolverConfig
-    from pqp_for_mpc_tpu.solver import (SolveResult, _as2d, costs,
-                                        feasibility)
+    from pqp_for_mpc_tpu.solver import SolveResult, _as2d, check_terminate
 
     cfg = cfg or SolverConfig()
-    if dual.Qd.ndim != 2:
-        raise ValueError("solve_fused requires shared Qd geometry; use "
-                         "solve_fused_distinct for per-instance Qd")
-    if dual.Qdn_theta is None:
+    if not fused_supports(dual, cfg):
         raise ValueError(
-            "solve_fused holds the MATERIALIZED Qd splits in VMEM — "
-            "rebuild the dual with dualize(materialize_splits=True), or "
-            "use solve_batched / solve_mixed (they never need them)")
+            "solve_fused takes shared 2-D Qd with materialized splits "
+            f"(dualize(materialize_splits=True)), N <= {MAX_FUSED_N}, "
+            "accel_every=0 and feas_from_dual_gradient=False; use "
+            "solve_batched")
+    f32 = jnp.float32
     N = dual.n_con
-    Fd2 = _as2d(dual.Fd)
-    B = Fd2.shape[1]
-    if Y0 is None:
-        Y0 = jnp.full((N, B), cfg.y0, jnp.float32)
-    else:
+    M = primal.Gp.shape[1]
+    B = _as2d(dual.Fd).shape[1]
+    if Y0 is not None:
         Y0 = _as2d(Y0)
-        if Y0.shape[1] == 1 and B > 1:
-            Y0 = jnp.broadcast_to(Y0, (N, B))
-        elif B > 1 and Y0.shape[1] != B:
+        if B > 1 and Y0.shape[1] not in (1, B):
             raise ValueError(
                 f"warm start batch {Y0.shape[1]} != instance batch {B}")
         B = max(B, Y0.shape[1])
-    Fp2 = jnp.broadcast_to(_as2d(primal.Fp), (primal.Gp.shape[1], B))
-    Fd2 = jnp.broadcast_to(Fd2, (N, B))
-    Mp2 = jnp.broadcast_to(jnp.atleast_1d(primal.Mp), (B,))
-    Md2 = jnp.broadcast_to(jnp.atleast_1d(dual.Md), (B,))
-    # per-lane Kp (state-dependent output bounds) rides the fast path:
-    # the slack threshold is streamed into the kernel as an (N, B) panel
-    kp_slack = primal.Kp + jnp.maximum(cfg.erc * primal.Kp, cfg.eac)
-    if kp_slack.ndim == 2 and kp_slack.shape[1] not in (1, B):
-        raise ValueError(
-            f"Kp batch {kp_slack.shape[1]} != instance batch {B}")
+    n_pad, m_pad = _pad_dim(N), _pad_dim(M)
+    bb, num_warps = launch_shape(n_pad)
+    b_pad = -(-B // bb) * bb
+    dn, dm, db = n_pad - N, m_pad - M, b_pad - B
 
-    Y, U, iters, lane_state = fused_full_solve(
-        dual.Qdn_theta, dual.Qdp_theta, dual.Qd, primal.Gp, primal.Qp,
-        primal.Qp_inv, Fp2,
-        Fd2, jnp.broadcast_to(_as2d(dual.Fdp), (N, B)),
-        jnp.broadcast_to(_as2d(dual.Fdn), (N, B)), kp_slack, Mp2, Md2, Y0,
-        max_iters=cfg.max_iters, check_every=cfg.check_every,
-        accel_every=cfg.accel_every, eaj=cfg.eaj, erj=cfg.erj,
-        strict=cfg.strict_weak_duality, den_eps=cfg.den_eps,
-        precision=cfg.precision,
-        gap_comp=cfg.gap_from_complementarity, interpret=interpret)
-    from jax import lax as _lax
-    prec = (_lax.Precision.HIGHEST if cfg.precision == "highest" else None)
-    feas = feasibility(primal, U, cfg.erc, cfg.eac, prec)
-    Jp, Jd = costs(primal, dual, Y, U, prec)
-    div = ~jnp.all(jnp.isfinite(Y), axis=0)
-    # converged = certified by the in-kernel termination test (the
-    # reference's notion of convergence, evaluated with the kernel's own
-    # arithmetic), OR a stall-frozen fixed point whose exit state passes
-    # the XLA-side verdict (rescues razor-edge interior optima).  The
-    # rescue honors cfg.gap_from_complementarity too, so the kernel and
-    # XLA verdicts certify with the same gap estimator (ADVICE r2 #1).
-    from pqp_for_mpc_tpu.solver import (complementarity_gap,
-                                        termination_fail)
-    cert = lane_state == 1.0
-    gap = (complementarity_gap(dual, Y, prec)
-           if cfg.gap_from_complementarity else None)
-    fail = termination_fail(feas, Jp, Jd, cfg, gap)
-    # Any UNcertified lane (stall-frozen OR max_iters-exhausted) whose
-    # exit state passes the XLA-side verdict counts as converged — the
-    # same semantics as solve_batched's final check_terminate after its
-    # while loop.  Without the max_iters half, a lane whose slightly
-    # different Mosaic trajectory certifies just past the budget is
-    # reported unconverged even though its iterate is at the solution
-    # (measured: 5-10/128 lanes at N>=512, benchmarks/CONFORMANCE_r2.json).
-    conv = (cert | ~fail) & ~div
-    return SolveResult(U=U, Y=Y, iters=iters, converged=conv,
+    def square(A, n, n_p, diag):
+        out = jnp.pad(A, ((0, n_p - n), (0, n_p - n)))
+        pad_idx = jnp.arange(n, n_p)
+        return out.at[pad_idx, pad_idx].set(diag) if diag else out
+
+    def panel(v, rows, fill=0.0):
+        v = jnp.broadcast_to(_as2d(v), (rows, B)).astype(f32)
+        return jnp.pad(v, ((0, _pad_dim(rows) - rows), (0, db)),
+                       constant_values=fill)
+
+    def lanes(v):
+        return jnp.pad(jnp.broadcast_to(v, (B,)).astype(f32), (0, db))
+
+    Gp = jnp.pad(primal.Gp, ((0, dn), (0, dm)))
+    y0 = jnp.full((N, B), cfg.y0, f32) if Y0 is None else Y0
+    kp_slack = primal.Kp + jnp.maximum(cfg.erc * primal.Kp, cfg.eac)
+    operands = (
+        square(dual.Qdn_theta, N, n_pad, 1.0),
+        square(dual.Qdp_theta, N, n_pad, 1.0),
+        square(dual.Qd, N, n_pad, 0.0),
+        Gp.T, Gp,
+        square(primal.Qp, M, m_pad, 1.0),
+        square(primal.Qp_inv, M, m_pad, 1.0),
+        panel(primal.Fp, M), panel(dual.Fd, N),
+        panel(kp_slack, N, fill=jnp.inf),
+        lanes(primal.Mp), lanes(dual.Md),
+        panel(y0, N, fill=1.0))
+
+    whole = lambda a: pl.BlockSpec(a.shape, lambda i: (0, 0))
+    lane_panel = lambda rows: pl.BlockSpec((rows, bb), lambda i: (0, i))
+    lane_row = pl.BlockSpec((bb,), lambda i: (i,))
+    in_specs = ([whole(a) for a in operands[:7]]
+                + [lane_panel(m_pad)] + [lane_panel(n_pad)] * 2
+                + [lane_row] * 2 + [lane_panel(n_pad)])
+    Y, iters, state = pl.pallas_call(
+        functools.partial(_kernel, n_lanes=B, cfg=cfg),
+        grid=(b_pad // bb,),
+        in_specs=in_specs,
+        out_specs=[lane_panel(n_pad), lane_row, lane_row],
+        out_shape=[jax.ShapeDtypeStruct((n_pad, b_pad), f32),
+                   jax.ShapeDtypeStruct((b_pad,), jnp.int32),
+                   jax.ShapeDtypeStruct((b_pad,), jnp.int32)],
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=num_warps,
+                                                num_stages=1),
+        interpret=interpret,
+        name="pqp_whole_solve",
+    )(*operands)
+    Y, iters, state = Y[:N, :B], iters[:B], state[:B]
+
+    prec = lax.Precision.HIGHEST if cfg.precision == "highest" else None
+    ok, U, feas, Jp, Jd = check_terminate(primal, dual, Y, cfg, prec)
+    div = (state == DIVERGED) | ~jnp.all(jnp.isfinite(Y), axis=0)
+    return SolveResult(U=U, Y=Y, iters=iters,
+                       converged=((state == CERTIFIED) | ok) & ~div,
                        feasible=feas, Jp=Jp, Jd=Jd, diverged=div)

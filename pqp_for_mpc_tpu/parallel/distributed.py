@@ -2,16 +2,17 @@
 
 The reference is a single-process, single-GPU program (SURVEY.md §2.3);
 this module is the new capability: run the batched/sharded solvers over a
-multi-host TPU slice (or a multi-process CPU ring for testing) with the
+multi-host GPU cluster (or a multi-process CPU ring for testing) with the
 ``data`` axis spanning hosts — each host feeds its local shard of the
 scenario batch, GSPMD inserts the only cross-host collective (the global
-``all(done)`` reduction riding ICI/DCN).
+``all(done)`` reduction, which XLA hands to NCCL).
 
-Typical pod usage::
+Typical cluster usage, one process per host::
 
     import pqp_for_mpc_tpu.parallel.distributed as dist
-    dist.initialize()                       # env-driven on TPU pods
-    mesh = dist.global_mesh(model=1)        # data axis spans all chips
+    dist.initialize(coordinator_address="host0:1234",
+                    num_processes=n_hosts, process_id=rank)
+    mesh = dist.global_mesh(model=1)        # data axis spans all GPUs
     primal, dual = shard_batch(primal, dual, mesh)
     res = solve_batched(primal, dual, cfg=cfg)
 
@@ -36,10 +37,12 @@ def initialize(coordinator_address: Optional[str] = None,
                local_device_count: Optional[int] = None) -> None:
     """``jax.distributed.initialize`` wrapper.
 
-    With no arguments, relies on the TPU pod environment (libtpu +
-    cluster env vars) exactly like any jax multi-host program.  For CPU
-    test rings, pass everything explicitly; ``local_device_count`` forces
-    N virtual CPU devices per process (must run before any jax op).
+    On a GPU cluster pass ``coordinator_address`` (``host:port`` of
+    process 0), ``num_processes`` and ``process_id``; without them
+    ``jax.distributed.initialize`` must find a cluster environment it
+    knows.  For CPU test rings, pass everything explicitly;
+    ``local_device_count`` forces N virtual CPU devices per process
+    (must run before any jax op).
     """
     import jax
 
@@ -57,7 +60,8 @@ def initialize(coordinator_address: Optional[str] = None,
 def global_mesh(model: int = 1, data: Optional[int] = None) -> Mesh:
     """A ``(data, model)`` mesh over ALL devices of the job (every
     process sees the same global mesh; arrays are addressed per-shard).
-    The model axis is innermost so its all-gathers stay on-host/ICI."""
+    The model axis is innermost, so its all-gathers stay within a
+    host."""
     from pqp_for_mpc_tpu.parallel.mesh import make_mesh
     import jax
 

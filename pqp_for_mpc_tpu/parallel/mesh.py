@@ -22,8 +22,9 @@ def make_mesh(data: Optional[int] = None, model: int = 1,
     """Create a ``(data, model)`` mesh over the available devices.
 
     ``data=None`` uses all remaining devices after the model axis.
-    The model axis is laid out innermost so its all-gathers ride the
-    fastest ICI links.
+    The model axis is laid out innermost.  The four GPUs of one host are
+    joined all to all by NVLink, so within a host the layout follows the
+    algorithm only.
     """
     devices = list(devices if devices is not None else jax.devices())
     n = len(devices)

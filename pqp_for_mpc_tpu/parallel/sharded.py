@@ -9,13 +9,13 @@ scaling capabilities:
   sharded over the ``data`` mesh axis, the small shared matrices are
   replicated, and XLA/GSPMD inserts the only needed collective (the
   ``all(done)`` reduction in the while-loop condition).  This is the path
-  for 65k-scenario batches over a pod slice (BASELINE config 5).
+  for 65k-scenario batches over several devices (BASELINE config 5).
 
 * :func:`solve_row_sharded` — explicit shard_map tensor parallelism for
   large dual dimension N: each device owns a row block of
   ``Qd^{+/-}+theta`` (N/mp, N) and the matching block of Y; each iteration
   all-gathers Y along ``model`` (the TP matvec pattern), computes its row
-  block of both matvecs on the MXU, and applies the elementwise update to
+  block of both matvecs, and applies the elementwise update to
   its rows.  Convergence reductions (Gp'Y, feasibility violations, dual
   cost) are ``psum`` partial sums.  U is recovered replicated (M is small).
 """
@@ -95,13 +95,13 @@ def solve_row_sharded(primal: PrimalQP, dual: DualQP,
     Requires N divisible by mesh.shape[model_axis] and B divisible by
     mesh.shape[data_axis] (pad the batch; pad N via the caller if needed —
     padded rows with identity diagonal and Y=1 are fixed points, see
-    ops.kernels).
+    ops.solve_kernel).
 
     ``mixed=True`` prepends the bfloat16 bulk phase of
     :func:`pqp_for_mpc_tpu.solver.solve_mixed` in row-sharded form:
-    each device streams its bf16 row blocks (half the HBM bytes) AND the
-    per-iteration ``all_gather(Y)`` rides the ICI in bf16 (half the
-    interconnect bytes — the TP matvec's collective is the other
+    each device streams its bf16 row blocks (half the bytes) AND the
+    per-iteration ``all_gather(Y)`` moves bf16 (half the interconnect
+    bytes — the TP matvec's collective is the other
     bandwidth term at scale).  Same consistent-rounding construction
     and bf16-floor handoff as solve_mixed; certification stays float32
     on the true problem.
@@ -160,7 +160,7 @@ def solve_row_sharded(primal: PrimalQP, dual: DualQP,
             return lax.all_gather(Yb, model_axis, axis=0, tiled=True)
 
         def gather_bf(Yb):
-            # the TP collective in bf16: half the ICI bytes
+            # the TP collective in bf16: half the interconnect bytes
             return lax.all_gather(Yb.astype(bf16), model_axis,
                                   axis=0, tiled=True)
 

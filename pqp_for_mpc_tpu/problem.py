@@ -18,7 +18,7 @@ reference's column-major file layout):
 * ``M`` — number of primal variables (inputs over the horizon).
 * ``N`` — number of constraints (= dual dimension).
 * Batched solves put the batch LAST: ``Y: (N, B)`` so each PQP update is an
-  ``(N, N) @ (N, B)`` matmul feeding the MXU with the batch on the lane
+  ``(N, N) @ (N, B)`` matrix product with the batch on the trailing
   dimension.
 """
 

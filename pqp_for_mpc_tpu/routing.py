@@ -1,90 +1,29 @@
-"""Automatic solve-engine routing: the measured regime map in code.
+"""Automatic solve-engine routing.
 
-The framework has seven solve entry points — :func:`solve_batched`
-(XLA while loop, optionally riding the update kernels),
-:func:`ops.solve_kernel.solve_fused` (VMEM-resident whole-solve
-kernel), :func:`ops.tiled_solve_kernel.solve_fused_tiled` (streamed
-whole-solve), :func:`ops.distinct_kernel.solve_fused_distinct`,
-:func:`ops.distinct_tiled_kernel.solve_fused_distinct_tiled`,
-:func:`solver.solve_mixed` (bf16 bulk + f32 certify), and
-:func:`parallel.sharded.solve_row_sharded` (tensor parallel) — whose
-measured crossovers previously lived as prose in BENCHMARKS.md.  The
-reference's answer to engine choice was five hand-picked ``main()``
-variants the user compiles one of (``/root/reference/README.md:8-17``);
-the TPU-first answer is self-routing: :func:`route_solve` encodes the
-regime map, :func:`solve_auto` dispatches through it.
+Three engines solve a batch of PQP duals:
 
-The map (every edge cites the artifact that measured it):
+* ``"xla"`` — :func:`~pqp_for_mpc_tpu.solver.solve_batched`, the masked
+  XLA while loop; every shape, geometry and configuration;
+* ``"fused"`` — :func:`~pqp_for_mpc_tpu.ops.solve_kernel.solve_fused`,
+  the whole-solve GPU kernel (Pallas through Triton);
+* ``"mixed"`` — :func:`~pqp_for_mpc_tpu.solver.solve_mixed`, a bfloat16
+  bulk phase then float32 certification.
 
-================  =========  ==============  ===========================
-geometry          regime     engine          measured by
-================  =========  ==============  ===========================
-any               CPU/other  xla             Mosaic kernels are TPU-only
-shared (2-D Qd)   B < 128    xla             CONTROLLER_BENCH_r2..r5 —
-                                             the receding-horizon regime
-                                             (B=1, warm shift) was
-                                             measured through
-                                             solve_batched; lanes pad to
-                                             128 in the kernels.  Also
-                                             keeps the reference-mode
-                                             float program exactly XLA's
-                                             (golden 313 parity).  Warm
-                                             LARGE batches ride the
-                                             kernel when the cfg is
-                                             kernel-certifiable
-                                             (measured N=96/B=2048:
-                                             0.294 vs 0.390 s) and stay
-                                             on XLA at the unmeasured
-                                             warm-mixed sizes.
-shared, resident  N < 512    fused           CONFORMANCE_r3 (1.1-2.8x vs
-                                             XLA), MIXED_RESIDENT_r4
-                                             (N=256: mixed 0.99x vs
-                                             kernel — the kernel holds);
-                                             bench.py headline (N=28,
-                                             B=4.2M, 8.4M solves/s)
-shared, resident  N >= 512,  mixed           MIXED_RESIDENT_r4: 1.52x
-                  comp mode                  (N=512) to 2.46x (N=1024)
-                                             over the resident kernel,
-                                             3.49x over f32 XLA at
-                                             N=1536
-shared, resident  N >= 512,  fused           reference-mode wins were
-                  ref mode                   measured for the kernel
-                                             only (CONFORMANCE_r2/r3);
-                                             solve_mixed has no
-                                             reference-mode row yet
-shared, resident  feas_from_  xla            the kernels certify with
-                  dual_grad-                 the reference's forcing-
-                  ient on                    scale Gp U program; only
-                                             the XLA check honors the
-                                             operator-consistent
-                                             certificate the cfg asked
-                                             for
-shared, streamed  N > ~1800  mixed           MIXED_BENCH_r4: 3.7x/3.3x
-                  (!fits_                    vs f32 XLA at N=4096, 2.5-
-                  vmem)                      2.8x vs the streamed f32
-                                             whole-solve kernel; the
-                                             bf16 tiled update kernel is
-                                             forced on (mixed_kernel_s <
-                                             mixed_s in every row)
-distinct (3-D)    resident   fused_distinct  per-instance geometry DMA'd
-                  (distinct_                 once, whole solve in-kernel
-                  fits_vmem)                 (ops/distinct_kernel.py,
-                                             DISTINCT_STREAM_BENCH_r3
-                                             methodology at small N)
-distinct (3-D)    streamed   mixed           MIXED_BENCH_r4 distinct
-                                             row: 1.63x vs f32 einsum at
-                                             N=2048 (bf16 streamed
-                                             distinct kernel: r5)
-================  =========  ==============  ===========================
-
-The reference has no routing to compare against — its five variants are
-the same pipeline at five optimization levels and the user picks one at
-compile time (``/root/reference/README.md:8-17``).
+:func:`route_solve` returns ``"fused"`` only in the regime where the
+kernel was measured faster than ``solve_batched`` end to end on one
+H100 (700 W): a GPU, shared geometry, a cold start, a configuration the
+kernel certifies (no acceleration, no ``feas_from_dual_gradient``),
+``16 < N <= 64`` and at least 262,144 lanes.  There it measured 0.244 s
+against 0.461 s at N=28, B=1,048,576 and 1.23x at N=64, B=262,144
+(``chip_smoke.py`` phase 3).  Everything else is ``"xla"``: off the GPU
+there is no kernel to choose, and ``"mixed"`` is not yet measured
+against float32 across N on this card, so it stays an explicit choice.
+The reference has no routing: its five variants are the same pipeline
+at five optimization levels, chosen at compile time.
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
 import jax
@@ -93,86 +32,38 @@ import jax.numpy as jnp
 from pqp_for_mpc_tpu.config import SolverConfig
 from pqp_for_mpc_tpu.problem import PrimalQP
 from pqp_for_mpc_tpu.dual import DualQP
+from pqp_for_mpc_tpu.ops.solve_kernel import (MAX_FUSED_N, fused_supports,
+                                            solve_fused)
 from pqp_for_mpc_tpu.solver import (SolveResult, _as2d, retry_cold_solve,
                                     solve_batched, solve_mixed)
 
-#: lane quantum — kernels pad the batch to a multiple of this, so a
-#: sub-lane batch wastes the padded lanes' compute
-_LANE = 128
+ENGINES = ("xla", "fused", "mixed")
 
-#: engines route_solve can return, plus the explicitly-requestable
-#: streamed distinct whole-solve kernel (solve_auto(engine=...) only).
-#: route_solve never picks the latter: mixed beats it on the
-#: MIXED_BENCH_r5 workload (1.26 vs 1.67 s) AND — measured round 5 —
-#: on the hard tight-tolerance marathon family its early exit was
-#: built for (4.84 vs 5.14 s at 28k bf16 iterations vs 19k f32; the
-#: 2-byte stream outruns the iteration-count advantage).  It stays
-#: requestable as the single-launch option (e.g. one dispatch per
-#: batch under external schedulers).
-ENGINES = ("xla", "fused", "mixed", "fused_distinct",
-           "fused_distinct_tiled")
+#: smallest N and batch at which the kernel was measured (N=28 and
+#: N=64 at B >= 262,144); below them it is unmeasured and not chosen
+FUSED_MIN_N = 17
+FUSED_MIN_BATCH = 1 << 18
 
 
 def route_solve(n_con: int, batch: int, distinct: bool,
-                cfg: SolverConfig, m_dim: Optional[int] = None,
-                platform: Optional[str] = None,
+                cfg: SolverConfig, platform: Optional[str] = None,
                 warm: bool = False) -> str:
-    """Pick the measured-best solve engine for one problem shape.
+    """Pick the solve engine for one problem shape.
 
     Pure decision function (no device work): ``n_con`` = dual dimension
     N, ``batch`` = instance count B, ``distinct`` = per-instance Qd
-    (3-D), ``m_dim`` = primal dimension M (needed for the distinct
-    kernel's VMEM plan), ``platform`` = jax backend name (``None`` =
-    ask jax), ``warm`` = a warm start Y0 is provided (the receding-
-    horizon regime).  Returns one of :data:`ENGINES`.
+    (3-D), ``platform`` = JAX backend name (``None`` = ask JAX),
+    ``warm`` = a warm start Y0 is provided.  Returns one of
+    :data:`ENGINES`.
     """
     if platform is None:
         platform = jax.default_backend()
-    if platform != "tpu":
-        # Mosaic kernels compile on TPU only (interpret mode is a test
-        # vehicle, ~100x slower); solve_mixed's bf16 phase pays off only
-        # where HBM bandwidth is the binding resource
-        return "xla"
-    if distinct:
-        from pqp_for_mpc_tpu.ops.distinct_kernel import distinct_fits_vmem
-        if m_dim is not None and distinct_fits_vmem(n_con, m_dim):
-            return "fused_distinct"
-        return "mixed"
-    from pqp_for_mpc_tpu.ops.kernels import fits_vmem
-    if not fits_vmem(n_con):
-        return "mixed"
-    if batch < _LANE:
-        # small-batch / single-lane receding-horizon regime: measured
-        # through the XLA while loop (CONTROLLER_BENCH), and the
-        # kernels would pad the batch to 128 lanes anyway
-        return "xla"
-    if n_con >= 512 and cfg.gap_from_complementarity:
-        # warm large batches here are check-dominated (a good Y0
-        # certifies within ~1 cadence) and measured fastest on the XLA
-        # path: N=1024/B=2048 warm — xla 38.5 ms, fused 40.7, mixed
-        # 41.6, all at 17 iters; mixed's bf16 bulk phase only pays off
-        # from a cold start (200 ms vs f32's ~320 on the same problem)
-        return "xla" if warm else "mixed"
-    if cfg.feas_from_dual_gradient:
-        # the whole-solve kernel certifies feasibility with the
-        # reference's forcing-scale Gp U program in-kernel; a cfg that
-        # asked for the operator-consistent certificate (MPC_CONFIG
-        # default since round 5) must ride the XLA check — routing it
-        # to "fused" would silently drop the certificate the caller
-        # chose (and, at condensed-MPC scales, burn max_iters failing
-        # the forcing-scale test the flag exists to replace)
-        return "xla"
-    if warm and n_con >= 512:
-        # the warm-kernel win was measured at small N only (below);
-        # at N=1024 warm the kernel measured ~6% BEHIND XLA (38.5 vs
-        # 40.7 ms — warm solves are check-dominated and the XLA check
-        # is leaner) — stay on XLA there
-        return "xla"
-    # resident, kernel-certifiable cfg: the whole-solve kernel wins for
-    # cold AND warm batches at small N (measured N=96/B=2048 warm
-    # scenario fan-out: fused 0.294 s vs XLA 0.390 s, identical
-    # certified counts — warm starts ride Y0 into the kernel unchanged)
-    return "fused"
+    if (platform == "gpu" and not distinct and not warm
+            and FUSED_MIN_N <= n_con <= MAX_FUSED_N
+            and batch >= FUSED_MIN_BATCH
+            and not cfg.accel_every and not cfg.feas_from_dual_gradient):
+        return "fused"
+    return "xla"
 
 
 def solve_auto(primal: PrimalQP, dual: DualQP,
@@ -180,69 +71,39 @@ def solve_auto(primal: PrimalQP, dual: DualQP,
                cfg: SolverConfig = SolverConfig(),
                retry_cold: bool = False,
                engine: Optional[str] = None) -> SolveResult:
-    """Solve through the measured-best engine for this problem's regime
-    (see :func:`route_solve`; pass ``engine`` to override).  Accepts
-    everything :func:`solve_batched` does — shared or distinct
-    geometry, warm starts, certify-or-recover ``retry_cold`` — and
-    routes to :func:`solve_batched`, the whole-solve kernel,
-    :func:`solve_mixed`, or the distinct kernel.
+    """Solve through the engine :func:`route_solve` picks for this
+    problem (pass ``engine`` to choose one).  Accepts everything
+    :func:`solve_batched` does — shared or distinct geometry, warm
+    starts, certify-or-recover ``retry_cold``.
 
     Safe under ``jit``: the routing decision is made at trace time from
     static shapes and the static ``cfg``.
     """
     distinct = dual.Qd.ndim == 3
     N = dual.n_con
-    if distinct:
-        B = dual.Qd.shape[0]
-    else:
-        B = _as2d(dual.Fd).shape[1]
+    B = dual.Qd.shape[0] if distinct else _as2d(dual.Fd).shape[1]
     if Y0 is not None and _as2d(Y0).shape[1] > B:
         B = _as2d(Y0).shape[1]
-    M = primal.Gp.shape[-1]
     if engine is None:
-        engine = route_solve(N, B, distinct, cfg, m_dim=M,
-                             warm=Y0 is not None)
-        if dual.Qdn_theta is None and engine.startswith("fused"):
+        engine = route_solve(N, B, distinct, cfg, warm=Y0 is not None)
+        if engine == "fused" and not fused_supports(dual, cfg):
             # a split-free dual (dualize(materialize_splits=False))
-            # cannot feed the VMEM-resident kernels, which hold the
-            # materialized splits — auto mode downgrades to the best
-            # split-free engine instead of erroring (explicit
-            # engine="fused..." still raises clearly)
-            engine = "mixed" if distinct else "xla"
+            engine = "xla"
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
-    if engine.startswith("fused") and jax.default_backend() != "tpu":
+    if engine == "fused" and jax.default_backend() != "gpu":
         raise ValueError(
-            f"engine {engine!r} is a Mosaic TPU kernel and this process "
-            f"is on {jax.default_backend()!r} — use engine='xla'/'mixed' "
-            "(or interpret-mode kernels in tests)")
+            f"engine 'fused' is a GPU kernel and this process is on "
+            f"{jax.default_backend()!r}; use engine='xla' or 'mixed' "
+            "(tests run the kernel through solve_fused(interpret=True))")
 
     if engine == "xla":
         return solve_batched(primal, dual, Y0=Y0, cfg=cfg,
                              retry_cold=retry_cold and Y0 is not None)
     if engine == "mixed":
-        if jax.default_backend() == "tpu" and cfg.accel_every:
-            # the bf16 streamed update kernels beat the XLA mixed phase
-            # on every ACCELERATED row (MIXED_BENCH_r5: shared 0.48 vs
-            # 0.60 s, distinct 1.19 vs 1.55 s); without acceleration
-            # the XLA phase wins on current XLA (1.44 vs 1.63 s at
-            # N=4096 — it fuses the relu splits into the dot stream,
-            # re-measured round 5), so the kernel is forced only when
-            # the cfg runs accel chunks.  solve_mixed gates the kernels
-            # on the appropriate residency test itself.
-            cfg = dataclasses.replace(cfg, use_pallas=True)
         fn = lambda y0: solve_mixed(primal, dual, Y0=y0, cfg=cfg)
-    elif engine == "fused":
-        from pqp_for_mpc_tpu.ops.solve_kernel import solve_fused
-        fn = lambda y0: solve_fused(primal, dual, Y0=y0, cfg=cfg)
-    elif engine == "fused_distinct_tiled":
-        from pqp_for_mpc_tpu.ops.distinct_tiled_kernel import \
-            solve_fused_distinct_tiled
-        fn = lambda y0: solve_fused_distinct_tiled(primal, dual, Y0=y0,
-                                                   cfg=cfg)
     else:
-        from pqp_for_mpc_tpu.ops.distinct_kernel import solve_fused_distinct
-        fn = lambda y0: solve_fused_distinct(primal, dual, Y0=y0, cfg=cfg)
+        fn = lambda y0: solve_fused(primal, dual, Y0=y0, cfg=cfg)
 
     if retry_cold and Y0 is not None:
         Y_warm = jnp.maximum(_as2d(Y0), 0.0)

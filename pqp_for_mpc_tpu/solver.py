@@ -1,6 +1,6 @@
 """The PQP multiplicative-update dual solver.
 
-TPU-native re-design of the reference hot loop (``solveQuadraticDual``,
+Batched re-design of the reference hot loop (``solveQuadraticDual``,
 PQP_CPU.c:694-750):
 
 * the iteration is a ``lax.while_loop`` whose body performs
@@ -9,19 +9,16 @@ PQP_CPU.c:694-750):
   iterate trajectory is identical to the reference's check-every-iteration
   loop; only the *granularity* of the reported iteration count changes;
 * instances are batched with the batch on the trailing (lane) axis:
-  ``Y (N, B)``, so each update is two ``(N, N) @ (N, B)`` matmuls on the
-  MXU plus a VPU elementwise multiply — the reference's per-element CUDA
+  ``Y (N, B)``, so each update is two ``(N, N) @ (N, B)`` matrix products
+  plus an elementwise multiply — the reference's per-element CUDA
   kernels (``updYCuda`` PQP_GPU_unoptimized.cu:358-376) dissolve into XLA
   fusions;
 * per-instance convergence masks freeze solved instances
   (``jnp.where(done, Y, Y_next)``) — the batched analog of the reference's
-  scalar early exit;
-* optionally the inner updates run in a single fused Pallas kernel that
-  keeps Y and both split matrices in VMEM across iterations
-  (:mod:`pqp_for_mpc_tpu.ops.kernels`) — the TPU rendition of the fused
-  CUDA kernel ``matrixMultiplyCuda_computeupdateY2`` (PQP_Fusion.cu:772-846)
-  extended across iterations, which a CUDA grid-sync model cannot do in one
-  launch.
+  scalar early exit.
+
+The whole-solve GPU kernel (:mod:`pqp_for_mpc_tpu.ops.solve_kernel`)
+runs the same loop in one launch for small N.
 
 Convergence test (``terminate``, PQP_CPU.c:673-687), reproduced exactly
 including its quirks (slack uses ``erc*Kp`` with no absolute value,
@@ -110,9 +107,8 @@ def pqp_update(dual: DualQP, Y: jax.Array, precision=None,
     (updateY2 + updY, PQP_CPU.c:603-618, 590-596).  Y: (N, B).
 
     With ``dualize(materialize_splits=False)`` the splits are computed
-    on the fly from ``Qd`` inside the dots (current XLA fuses the relu
-    into the single Qd stream — measured never slower, and the
-    geometry's memory halves; see dualize's docstring) with the theta
+    on the fly from ``Qd`` inside the dots (the geometry's memory
+    halves; see dualize's docstring) with the theta
     term applied as a separate f32 elementwise add on BOTH sides.
     """
     if dual.Qdn_theta is None:
@@ -201,7 +197,7 @@ def termination_fail(feas: jax.Array, Jp: jax.Array, Jd: jax.Array,
     negated form (``fail if x > tol``) so NaN propagation matches C
     semantics (NaN comparisons are false => that test passes).  Single
     source of truth for the XLA check, the sharded check, and the
-    Pallas kernel's exit-verdict rescue.
+    whole-solve kernel's in-kernel check.
 
     ``gap`` — optional precomputed duality gap (the complementarity form
     ``Y'(Qd Y + Fd)``, see ``SolverConfig.gap_from_complementarity``);
@@ -304,10 +300,9 @@ def retry_cold_solve(solve_fn, Y_warm: jax.Array,
 
     The attempt loop is a ``lax.while_loop``, so the solve graph is
     compiled ONCE and the second attempt exists only at runtime (and
-    only when taken).  The previous formulation — ``lax.cond`` whose
-    cold branch duplicated the whole while-loop-of-associative-scan
-    solve graph — reproducibly crashed the TPU worker when compiled at
-    H=512 (ROADMAP #10); this one is the candidate fix named there.
+    only when taken).  A ``lax.cond`` whose cold branch duplicates the
+    whole while-loop-of-associative-scan solve graph compiles twice the
+    graph, which at H=512 is minutes.
 
     ``iters``/costs of a retried lane report the attempt that produced
     its result (same semantics the ``lax.cond`` form had).
@@ -387,40 +382,7 @@ def _solve_core(primal: PrimalQP, dual: DualQP, Y0: jax.Array,
     B = Y0.shape[1]
     k = cfg.check_every
 
-    use_pallas = cfg.use_pallas and dual.Qd.ndim == 2
-    if use_pallas:
-        from pqp_for_mpc_tpu.ops import kernels as _kernels
-        # beyond VMEM residency (N ≈ 1800) the update kernel streams the
-        # Hessian from HBM slab-by-slab — half the HBM traffic of the XLA
-        # path (tiled_kernel.py module docstring)
-        pallas_tiled = not _kernels.fits_vmem(N)
-        if pallas_tiled:
-            from pqp_for_mpc_tpu.ops import tiled_kernel as _tiled
-        elif dual.Qdn_theta is None:
-            # the resident kernel holds the MATERIALIZED splits in VMEM;
-            # a no-splits dual (dualize(materialize_splits=False)) rides
-            # the XLA body instead (the tiled kernel above never needed
-            # the splits — it reconstructs them from Qd per slab)
-            use_pallas = False
-
     def run_mult_updates(Y, done, n):
-        if use_pallas:
-            if pallas_tiled:
-                Ynew = _tiled.fused_pqp_iterations_tiled(
-                    dual.Qd, dual.theta,
-                    jnp.broadcast_to(_as2d(dual.Fdn), (N, B)),
-                    jnp.broadcast_to(_as2d(dual.Fdp), (N, B)),
-                    Y, num_iters=n, den_eps=cfg.den_eps,
-                    precision=cfg.precision)
-            else:
-                Ynew = _kernels.fused_pqp_iterations(
-                    dual.Qdn_theta, dual.Qdp_theta,
-                    jnp.broadcast_to(_as2d(dual.Fdn), (N, B)),
-                    jnp.broadcast_to(_as2d(dual.Fdp), (N, B)),
-                    Y, num_iters=n, den_eps=cfg.den_eps,
-                    precision=cfg.precision)
-            return jnp.where(done[None, :], Y, Ynew)
-
         def body(_, Yc):
             Yn = pqp_update(dual, Yc, prec, cfg.den_eps)
             return jnp.where(done[None, :], Yc, Yn)
@@ -483,19 +445,20 @@ def solve_mixed(primal: PrimalQP, dual: DualQP,
                 cfg: SolverConfig = SolverConfig(),
                 floor_frac: float = 0.25,
                 floor_checks: int = 2) -> SolveResult:
-    """Mixed-precision solve for large N: a bfloat16 bulk phase streams
-    HALF the HBM bytes per iteration (the large-N solve is
-    bandwidth-bound), then :func:`solve_batched` refines in float32
-    from the bf16 iterate to the full certification tolerances.  The
-    result is certified on the TRUE float32 problem — bf16 only
-    accelerates the journey, never the verdict.
+    """Mixed-precision solve for large N: a bfloat16 bulk phase runs
+    its matrix products on bfloat16 operands with float32 accumulation
+    (half the bytes of each ``Qd`` sweep, and the bf16 matrix rate),
+    then :func:`solve_batched` refines in float32 from the bf16 iterate
+    to the full certification tolerances.  The result is certified on
+    the TRUE float32 problem — bf16 only accelerates the journey, never
+    the verdict.  Which of the two it buys on a given card is an open
+    measurement.
 
     Correctness requires a CONSISTENT bf16 problem.  Rounding the two
     precomputed splits ``Qd^{+/-} + theta`` independently breaks the
     identity ``Qd = (Qd^+ + th) - (Qd^- + th)`` and the multiplicative
-    update DIVERGES (measured on v5e at N=4096: Y grows to 3e9 and no
-    f32 refine recovers — the iterate lands on the wrong active face
-    and 0 is absorbing).  Instead ``Qd`` is rounded ONCE to bfloat16,
+    update DIVERGES (Y grows without bound and no f32 refine recovers —
+    the iterate lands on the wrong active face and 0 is absorbing).  Instead ``Qd`` is rounded ONCE to bfloat16,
     split elementwise (exact: the split just masks signs), theta is
     recomputed in f32 from the ROUNDED negative part's rowsums (the
     reference rule, PQP_CPU.c:503-519, so dominance still holds for the
@@ -508,8 +471,7 @@ def solve_mixed(primal: PrimalQP, dual: DualQP,
     :func:`check_terminate` on the true problem) or at the bf16 FLOOR,
     detected by comparing the gap of the BF16 problem itself (one cheap
     bf16 matvec, ``g_bf = Y'(Qd_bf Y + Fd)``) against the true gap:
-    away from the bf16 fixed point the two track each other (measured
-    ratio 0.85-0.98 throughout the N=4096 midgame), while AT the fixed
+    away from the bf16 fixed point the two track each other, while AT the fixed
     point ``g_bf -> 0`` and the true gap pins to the perturbation floor
     — so ``g_bf < floor_frac * g_true`` for ``floor_checks``
     consecutive checks means further bf16 sweeps improve only the
@@ -517,26 +479,22 @@ def solve_mixed(primal: PrimalQP, dual: DualQP,
     stall detectors do not work here: the PQP gap trajectory has long
     mid-solve plateaus (active-set resolution) that are
     indistinguishable from a floor locally — a per-check ratio test
-    froze every lane by iteration ~500 while 16k+ productive bf16
-    iterations remained (measured).  Phase 2 warm-starts
-    :func:`solve_batched` (honoring ``cfg.use_pallas``).  Reported
+    froze every lane long before the productive bf16 iterations were
+    spent.  Phase 2 warm-starts :func:`solve_batched`.  Reported
     ``iters`` = phase-1 iterations at freeze + phase-2 iterations, so
     throughput accounting stays honest.
 
     ``cfg.max_iters`` caps EACH phase separately (the reported
-    per-lane ``iters`` is the honest sum and may exceed it; a bf16
-    iteration costs ~1/3 of an f32 one, so the worst-case wall clock is
-    ~1.4x a pure f32 ``max_iters`` run, not 2x).  Non-finite phase-1
+    per-lane ``iters`` is the honest sum and may exceed it).  Non-finite phase-1
     lanes are reset to the cold start before the refine — divergence in
     the bulk phase costs time, never the verdict.
 
     Accepts shared geometry (2-D ``Qd``, batch = forcing lanes) and
     DISTINCT per-instance geometry (3-D ``Qd (B, N, N)``, the einsum
     path — theta then comes from each instance's own rounded rowsums).
-    For small N the f32 solve is VPU-bound and this path buys nothing —
-    use it for the streamed regime (N beyond ~1800).  Call it under
-    ``jit``: the bf16 geometry otherwise re-materializes per call
-    (measured 6x slower eager at N=4096).
+    For small N the matrix products are not the cost and this path buys
+    nothing.  Call it under ``jit``: the bf16 geometry otherwise
+    re-materializes per call.
     """
     distinct = dual.Qd.ndim == 3        # per-instance geometry (B, N, N)
     prec = lax.Precision.HIGHEST if cfg.precision == "highest" else None
@@ -552,40 +510,7 @@ def solve_mixed(primal: PrimalQP, dual: DualQP,
             B = Y0.shape[1]
 
     bf16 = jnp.bfloat16
-    use_kernel = cfg.use_pallas
-    if use_kernel:
-        # the bf16 streamed kernels are the bulk engine only beyond the
-        # relevant VMEM residency: the SHARED test for 2-D Qd (below it
-        # the resident f32 kernels already win) and the per-instance
-        # distinct-kernel budget for 3-D Qd (below it
-        # ops/distinct_kernel's resident whole-solve is the engine)
-        if distinct:
-            from pqp_for_mpc_tpu.ops.distinct_kernel import \
-                distinct_fits_vmem
-            use_kernel = not distinct_fits_vmem(N, primal.Gp.shape[-1])
-        else:
-            from pqp_for_mpc_tpu.ops import kernels as _kernels
-            use_kernel = not _kernels.fits_vmem(N)
-    if use_kernel and distinct:
-        from pqp_for_mpc_tpu.ops import distinct_tiled_kernel as _dtiled
-    elif use_kernel:
-        from pqp_for_mpc_tpu.ops import tiled_kernel as _tiled
-    if use_kernel:
-        # clamp float-noise-negative diagonal entries (Qd is PSD by
-        # construction) BEFORE the one rounding, so this construction
-        # is bit-identical to the kernels' bf16 mode — phase 1 must be
-        # ONE consistent perturbed problem whichever engine runs a
-        # given step (kernel updates vs XLA accel/floor terms)
-        ar = jnp.arange(N)
-        if distinct:
-            dg = jnp.maximum(jnp.diagonal(dual.Qd, axis1=1, axis2=2), 0.0)
-            Qd_cl = dual.Qd.at[:, ar, ar].set(dg)
-        else:
-            dg = jnp.maximum(jnp.diagonal(dual.Qd), 0.0)
-            Qd_cl = dual.Qd.at[ar, ar].set(dg)
-    else:
-        Qd_cl = dual.Qd
-    Qd_bf = Qd_cl.astype(bf16)
+    Qd_bf = dual.Qd.astype(bf16)
     Qdn_bf = jnp.maximum(-Qd_bf, 0)
     Qdp_bf = jnp.maximum(Qd_bf, 0)
     # rowsums of the ROUNDED negative part, (N,) or per-instance (B, N)
@@ -630,22 +555,6 @@ def solve_mixed(primal: PrimalQP, dual: DualQP,
 
     def run_updates(Y, frozen):
         def mult(n, Yc):
-            if use_kernel:
-                # one launch streams the bf16 matrix ONCE per update —
-                # half this function's own XLA phase (two bf16 splits)
-                # and a quarter of the f32 split path
-                if distinct:
-                    Yn = _dtiled.fused_pqp_iterations_distinct_tiled(
-                        Qd_cl, theta.T, Fdn, Fdp, Yc, num_iters=n,
-                        den_eps=cfg.den_eps, precision=cfg.precision,
-                        dtype="bfloat16")
-                else:
-                    Yn = _tiled.fused_pqp_iterations_tiled(
-                        Qd_cl, theta[:, 0], Fdn, Fdp, Yc, num_iters=n,
-                        den_eps=cfg.den_eps, precision=cfg.precision,
-                        dtype="bfloat16")
-                return jnp.where(frozen[None, :], Yc, Yn)
-
             def body(_, Yi):
                 return jnp.where(frozen[None, :], Yi, upd(Yi))
             return lax.fori_loop(0, n, body, Yc)

@@ -1,7 +1,6 @@
-"""Regression tests for the round-1 advisor findings (ADVICE.md) and the
-judge's weak-point list (VERDICT.md): diverged-lane iteration stamping,
-strict-JSON serve replies, significant-digit export, warm-start batch
-validation, and the single-instance guard on solve()."""
+"""Regression tests for earlier review findings: diverged-lane iteration
+stamping, strict-JSON serve replies, significant-digit export, warm-start
+batch validation, and the single-instance guard on solve()."""
 
 import json
 

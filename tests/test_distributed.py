@@ -4,7 +4,7 @@ Spawns two fresh processes (each with 4 virtual CPU devices), forms a
 jax.distributed cluster, builds the global (8, 1) mesh, runs the
 data-parallel batched solve on per-process shards and checks both ranks
 agree with the single-process result — the closest this environment gets
-to multi-host TPU validation (SURVEY.md §5.8).
+to multi-host validation (SURVEY.md §5.8).
 """
 
 import os

@@ -79,8 +79,7 @@ def test_constrained_outputs_mpc(capsys):
 
 def test_large_n_mixed(capsys):
     # tiny instance; the CPU backend emulates bf16 so no speedup is
-    # expected here — the example asserts CERTIFICATION parity, the
-    # hardware numbers live in benchmarks/MIXED_BENCH_r4.json
+    # expected here — the example asserts CERTIFICATION parity
     _run("large_n_mixed.py", [])
     out = capsys.readouterr().out
     assert "certified 8/8" in out

@@ -3,8 +3,8 @@
 The certification always runs in float32 on the TRUE problem, so the
 bar here is exact: solve_mixed must converge wherever solve_batched
 does and land on the same U* (same tolerances, same four-part test).
-The bf16 phase is a throughput device only — measured 3.0-4.7x over
-the f32 XLA path at N=4096 on v5e (benchmarks/bench_mixed.py).
+The bf16 phase is a throughput device only (benchmarks/bench_mixed.py
+times it against the f32 path).
 """
 
 import numpy as np

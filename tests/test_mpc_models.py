@@ -439,8 +439,8 @@ def test_controller_stagewise_backend_matches_condensed():
 def test_controller_stagewise_batch_transition():
     """A warm-started stage-wise controller accepts a batch-size change:
     the carried (N, 1) multipliers seed every lane of the next batched
-    step (caught live on TPU: the unbroadcast Y0 used to crash the
-    while_loop with a carry-shape mismatch)."""
+    step (the unbroadcast Y0 used to crash the while_loop with a
+    carry-shape mismatch)."""
     from pqp_for_mpc_tpu.models import MPCController
 
     ctrl = MPCController(_di_spec(16), backend="stagewise")
@@ -540,10 +540,9 @@ def test_controller_retry_cold_stagewise_backend():
 
 def test_controller_retry_cold_h512_compiles():
     """The H=512 retry_cold rollout graph compiles and runs (ROADMAP
-    #10 / VERDICT r2 task 2: the old lax.cond form DUPLICATED the
-    while-loop-of-associative-scan solve per scan step and reproducibly
-    crashed the TPU worker's compile at this horizon; the single-call-
-    site retry_cold_solve keeps one solve instance).  Tiny iteration
+    #10: a lax.cond form would DUPLICATE the while-loop-of-
+    associative-scan solve per scan step; the single-call-site
+    retry_cold_solve keeps one solve instance).  Tiny iteration
     budget — this pins compile+run, not certification."""
     import dataclasses
     from pqp_for_mpc_tpu.config import stagewise_mpc_config

@@ -119,7 +119,7 @@ def test_row_sharded_accel_matches():
 def test_profiler_trace_produces_artifact(tmp_path):
     """utils.profiling.trace captures a real profiler artifact around a
     solve (VERDICT r1: trace() had zero callers/tests).  On CPU the
-    xplane protobuf is still produced; on TPU the same call captures
+    xplane protobuf is still produced; on a GPU the same call captures
     device kernel timelines (benchmarks/capture_trace.py)."""
     import glob
 

@@ -137,16 +137,14 @@ def test_complementarity_gap_identity(seed):
 
 
 def test_complementarity_mode_solves_reference_example():
-    """gap_from_complementarity=True reaches the same U* on the golden
-    example (it changes the certification estimator, not the iterate
-    trajectory)."""
+    """gap_from_complementarity=True reaches the same U* on the
+    example-shaped problem (it changes the certification estimator, not
+    the iterate trajectory)."""
     import dataclasses
-    import jax.numpy as jnp
-    from pqp_for_mpc_tpu import SolverConfig, dualize, solve
-    from pqp_for_mpc_tpu.io import load_example_dir
+    from pqp_for_mpc_tpu import SolverConfig, solve
+    from pqp_for_mpc_tpu.models.example import example_problem
 
-    data = load_example_dir("/root/reference/example")
-    primal = data.assemble(Qp=jnp.linalg.inv(data.Qp_inv))
+    primal = example_problem()
     cfg = SolverConfig(max_iters=5000)
     ref = solve(primal, cfg=cfg)
     res = solve(primal, cfg=dataclasses.replace(
@@ -159,17 +157,11 @@ def test_complementarity_mode_solves_reference_example():
 def test_no_splits_dual_matches_materialized():
     """dualize(materialize_splits=False): half the geometry memory, the
     same certified solution — the splits are computed on the fly inside
-    the update's dots (round 5; current XLA fuses the relu into the
-    single Qd stream, measured never slower on chip)."""
-    import jax.numpy as jnp
+    the update's dots."""
     from pqp_for_mpc_tpu import SolverConfig, dualize, solve_batched
-    from pqp_for_mpc_tpu.io import load_example_dir
+    from pqp_for_mpc_tpu.models.example import example_problem
 
-    data = load_example_dir("/root/reference/example")
-    rng = np.random.default_rng(0)
-    x = np.asarray(data.x, np.float32)[:, None] + rng.normal(
-        0, 0.3, (data.x.shape[0], 8)).astype(np.float32)
-    primal = data.assemble(x=jnp.asarray(x), Qp=jnp.linalg.inv(data.Qp_inv))
+    primal = example_problem(8)
     cfg = SolverConfig(max_iters=5000, check_every=8, accel_every=4,
                        y0=0.01, eaj=1e-4, erj=1e-4, erc=1e-4, eac=1e-4,
                        strict_weak_duality=False,
@@ -190,15 +182,12 @@ def test_no_splits_dual_matches_materialized():
 
 
 def test_no_splits_dual_guards_kernel_paths():
-    """The engines that genuinely need materialized splits say so."""
-    import jax.numpy as jnp
-    import pytest as _pytest
+    """The whole-solve kernel, which needs materialized splits, says so."""
     from pqp_for_mpc_tpu import dualize
-    from pqp_for_mpc_tpu.io import load_example_dir
+    from pqp_for_mpc_tpu.models.example import example_problem
     from pqp_for_mpc_tpu.ops.solve_kernel import solve_fused
 
-    data = load_example_dir("/root/reference/example")
-    primal = data.assemble(Qp=jnp.linalg.inv(data.Qp_inv))
+    primal = example_problem()
     d_fly = dualize(primal, materialize_splits=False)
-    with _pytest.raises(ValueError, match="MATERIALIZED"):
-        solve_fused(primal, d_fly)
+    with pytest.raises(ValueError, match="materialize_splits=True"):
+        solve_fused(primal, d_fly, interpret=True)

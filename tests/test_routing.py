@@ -1,10 +1,9 @@
-"""Automatic solve-engine routing (VERDICT r4 item 2).
+"""Automatic solve-engine routing.
 
-The bar: route_solve reproduces the winner of every regime measured in
-the committed bench artifacts (MIXED_RESIDENT_r4, MIXED_BENCH_r4,
-CONFORMANCE_r3, CONTROLLER_BENCH_r4), and solve_auto is a drop-in for
-solve_batched — same results where the route lands on the XLA engine
-(this CPU test host), retry_cold included.
+route_solve picks the whole-solve GPU kernel only in the regime it was
+measured faster on the H100 and XLA everywhere else; solve_auto is a
+drop-in for solve_batched — same results where the route lands on the
+XLA engine (this CPU test host), retry_cold included.
 """
 
 import numpy as np
@@ -24,106 +23,43 @@ def _cfg(**kw):
 
 def test_route_cpu_always_xla():
     from pqp_for_mpc_tpu.routing import route_solve
-    for n, b, distinct in [(28, 1, False), (4096, 128, False),
-                           (2048, 8, True)]:
-        assert route_solve(n, b, distinct, _cfg(), m_dim=512,
+    for n, b, distinct in [(28, 1, False), (28, 1 << 20, False),
+                           (4096, 128, False), (2048, 8, True)]:
+        assert route_solve(n, b, distinct, _cfg(accel_every=0),
                            platform="cpu") == "xla"
 
 
-def test_route_shared_resident_small_n_fused():
-    """N < 512 resident, big cold batch -> whole-solve kernel
-    (CONFORMANCE_r3 1.1-2.8x; bench.py headline; MIXED_RESIDENT_r4
-    N=256 row where mixed is 0.99x vs the kernel)."""
+_KERNEL_CFG = dict(accel_every=0)
+
+
+@pytest.mark.parametrize("n,b,kw,warm,distinct,platform,want", [
+    (28, 1 << 20, {}, False, False, "gpu", "fused"),     # measured 1.89x
+    (64, 1 << 18, {}, False, False, "gpu", "fused"),     # measured 1.23x
+    (17, 1 << 18, {}, False, False, "gpu", "fused"),
+    (16, 1 << 20, {}, False, False, "gpu", "xla"),       # unmeasured N
+    (65, 1 << 20, {}, False, False, "gpu", "xla"),       # beyond the kernel
+    (128, 1 << 18, {}, False, False, "gpu", "xla"),      # measured slower
+    (28, (1 << 18) - 1, {}, False, False, "gpu", "xla"),  # unmeasured B
+    (28, 1 << 20, {}, True, False, "gpu", "xla"),        # warm start
+    (28, 1 << 20, {}, False, True, "gpu", "xla"),        # distinct
+    (28, 1 << 20, {"accel_every": 4}, False, False, "gpu", "xla"),
+    (28, 1 << 20, {"feas_from_dual_gradient": True}, False, False, "gpu",
+     "xla"),
+    (28, 1 << 20, {}, False, False, "cpu", "xla"),
+])
+def test_route_gpu_map(n, b, kw, warm, distinct, platform, want):
     from pqp_for_mpc_tpu.routing import route_solve
-    assert route_solve(28, 4_194_304, False, _cfg(), platform="tpu") \
-        == "fused"
-    assert route_solve(256, 128, False, _cfg(), platform="tpu") == "fused"
-
-
-def test_route_shared_resident_large_n_mixed_in_comp_mode():
-    """N >= 512 resident + complementarity mode -> mixed
-    (MIXED_RESIDENT_r4: 1.52-2.46x over the kernel); reference mode
-    stays on the kernel (no measured mixed row in that mode)."""
-    from pqp_for_mpc_tpu.routing import route_solve
-    assert route_solve(512, 128, False, _cfg(), platform="tpu") == "mixed"
-    assert route_solve(1024, 128, False, _cfg(), platform="tpu") == "mixed"
-    ref = _cfg(gap_from_complementarity=False)
-    assert route_solve(1024, 128, False, ref, platform="tpu") == "fused"
-
-
-def test_route_shared_streamed_mixed():
-    """Beyond VMEM residency -> mixed (MIXED_BENCH_r4: 3.3-3.7x vs f32
-    XLA at N=4096, 2.5-2.8x vs the streamed f32 whole-solve kernel)."""
-    from pqp_for_mpc_tpu.ops.kernels import fits_vmem
-    from pqp_for_mpc_tpu.routing import route_solve
-    assert not fits_vmem(4096)
-    assert route_solve(4096, 128, False, _cfg(), platform="tpu") == "mixed"
-    # streamed beats warm/small-batch preference: HBM bytes dominate
-    assert route_solve(4096, 8, False, _cfg(), platform="tpu",
-                       warm=True) == "mixed"
-
-
-def test_route_warm_or_small_batch_resident_xla():
-    """The receding-horizon regime (B < 128) was measured through
-    solve_batched (CONTROLLER_BENCH) — and small batches pad to 128
-    kernel lanes anyway.  WARM LARGE batches ride the kernel when the
-    cfg is kernel-certifiable (measured: fused 0.294 s vs XLA 0.390 s
-    at N=96/B=2048 warm, identical certified counts) but stay on XLA
-    at the unmeasured warm-mixed sizes."""
-    from pqp_for_mpc_tpu.routing import route_solve
-    assert route_solve(96, 1, False, _cfg(), platform="tpu",
-                       warm=True) == "xla"
-    assert route_solve(96, 4, False, _cfg(), platform="tpu") == "xla"
-    assert route_solve(96, 2048, False, _cfg(), platform="tpu",
-                       warm=True) == "fused"
-    assert route_solve(1024, 2048, False, _cfg(), platform="tpu",
-                       warm=True) == "xla"
-    # ...including in reference mode (the warm-kernel win was measured
-    # at small N only; N=1024 warm measured the kernel ~6% behind XLA)
-    assert route_solve(1024, 2048, False,
-                       _cfg(gap_from_complementarity=False),
-                       platform="tpu", warm=True) == "xla"
-    # golden-parity guard: the CLI single solve keeps XLA's exact
-    # reference-mode float program
-    assert route_solve(28, 1, False, _cfg(gap_from_complementarity=False),
-                       platform="tpu") == "xla"
-
-
-def test_route_feas_gradient_avoids_kernel_certification():
-    """A cfg asking for the operator-consistent certificate
-    (feas_from_dual_gradient, MPC_CONFIG's default since round 5) must
-    not route to the whole-solve kernel, whose in-kernel feasibility is
-    the reference's forcing-scale Gp U program — the XLA check (or
-    mixed's phase 2) is the only engine that honors the flag."""
-    from pqp_for_mpc_tpu.routing import route_solve
-    cfg = _cfg(feas_from_dual_gradient=True)
-    assert route_solve(256, 4096, False, cfg, platform="tpu") == "xla"
-    # the >=512 complementarity regime still goes to mixed (its
-    # certification runs through check_terminate, which honors the flag)
-    assert route_solve(1024, 128, False, cfg, platform="tpu") == "mixed"
-    # reference-style cfg without the flag keeps the kernel route
-    assert route_solve(256, 4096, False, _cfg(), platform="tpu") == "fused"
-
-
-def test_route_distinct():
-    from pqp_for_mpc_tpu.ops.distinct_kernel import distinct_fits_vmem
-    from pqp_for_mpc_tpu.routing import route_solve
-    assert distinct_fits_vmem(128, 32)
-    assert route_solve(128, 8, True, _cfg(), m_dim=32,
-                       platform="tpu") == "fused_distinct"
-    assert not distinct_fits_vmem(2048, 512)
-    assert route_solve(2048, 8, True, _cfg(), m_dim=512,
-                       platform="tpu") == "mixed"
+    cfg = _cfg(**{**_KERNEL_CFG, **kw})
+    assert route_solve(n, b, distinct, cfg, platform=platform,
+                       warm=warm) == want
 
 
 def test_route_rejects_unknown_engine():
-    import jax.numpy as jnp
     from pqp_for_mpc_tpu.dual import dualize
-    from pqp_for_mpc_tpu.io import load_example_dir
+    from pqp_for_mpc_tpu.models.example import example_problem
     from pqp_for_mpc_tpu.routing import solve_auto
 
-    data = load_example_dir("/root/reference/example")
-    primal = data.assemble(Qp=jnp.linalg.inv(data.Qp_inv))
+    primal = example_problem()
     dual = dualize(primal)
     with pytest.raises(ValueError, match="unknown engine"):
         solve_auto(primal, dual, engine="cuda")
@@ -170,15 +106,10 @@ def test_auto_backend_by_horizon():
 # ---------------------------------------------------------------- behavior
 
 def _example_problem():
-    import jax.numpy as jnp
     from pqp_for_mpc_tpu.dual import dualize
-    from pqp_for_mpc_tpu.io import load_example_dir
+    from pqp_for_mpc_tpu.models.example import example_problem
 
-    data = load_example_dir("/root/reference/example")
-    rng = np.random.default_rng(0)
-    x = np.asarray(data.x, np.float32)[:, None] + rng.normal(
-        0, 0.3, (data.x.shape[0], 16)).astype(np.float32)
-    primal = data.assemble(x=jnp.asarray(x), Qp=jnp.linalg.inv(data.Qp_inv))
+    primal = example_problem(16)
     return primal, dualize(primal)
 
 
@@ -203,7 +134,7 @@ def test_solve_auto_forced_mixed_engine_certifies():
     from pqp_for_mpc_tpu.routing import solve_auto
 
     primal, dual = _example_problem()
-    cfg = _cfg(use_pallas=False)
+    cfg = _cfg()
     run = jax.jit(lambda p, d: solve_auto(p, d, cfg=cfg, engine="mixed"))
     a = run(primal, dual)
     assert bool(np.asarray(a.converged).all())
@@ -231,32 +162,33 @@ def test_solve_auto_retry_cold_rescues_poisoned_warm_start():
     assert bool(np.asarray(res2.converged).all())
 
 
-def test_forced_kernel_engine_rejected_off_tpu():
-    """Forcing a Mosaic kernel engine on a non-TPU backend raises a
-    clear error instead of a Mosaic lowering stack trace."""
-    import jax.numpy as jnp
+def test_forced_kernel_engine_rejected_off_gpu():
+    """Forcing the GPU kernel engine on another backend raises a clear
+    error instead of a Triton lowering stack trace."""
     from pqp_for_mpc_tpu.dual import dualize
-    from pqp_for_mpc_tpu.io import load_example_dir
+    from pqp_for_mpc_tpu.models.example import example_problem
     from pqp_for_mpc_tpu.routing import solve_auto
 
-    data = load_example_dir("/root/reference/example")
-    primal = data.assemble(Qp=jnp.linalg.inv(data.Qp_inv))
+    primal = example_problem()
     dual = dualize(primal)
-    with pytest.raises(ValueError, match="Mosaic TPU kernel"):
+    with pytest.raises(ValueError, match="GPU kernel"):
         solve_auto(primal, dual, engine="fused")
 
 
-def test_auto_downgrades_on_split_free_dual():
-    """Auto routing never errors on a split-free dual: it downgrades
-    the kernel route to the best split-free engine (the user asked for
-    half-memory geometry, not for an exception)."""
-    import jax.numpy as jnp
-    from pqp_for_mpc_tpu import dualize
-    from pqp_for_mpc_tpu.io import load_example_dir
-    from pqp_for_mpc_tpu.routing import solve_auto
+def test_auto_downgrades_on_split_free_dual(monkeypatch):
+    """Auto routing never errors on a split-free dual: where the GPU
+    route would pick the kernel (which holds the materialized splits)
+    it takes the XLA engine instead."""
+    from pqp_for_mpc_tpu import dualize, routing, solve_batched
+    from pqp_for_mpc_tpu.models.example import example_problem
 
-    data = load_example_dir("/root/reference/example")
-    primal = data.assemble(Qp=jnp.linalg.inv(data.Qp_inv))
+    primal = example_problem(16)
     d_fly = dualize(primal, materialize_splits=False)
-    res = solve_auto(primal, d_fly, cfg=_cfg())
+    cfg = _cfg(accel_every=0)
+    monkeypatch.setattr(routing.jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(routing, "FUSED_MIN_BATCH", 1)
+    assert routing.route_solve(d_fly.n_con, 16, False, cfg) == "fused"
+    res = routing.solve_auto(primal, d_fly, cfg=cfg)
     assert bool(np.asarray(res.converged).all())
+    ref = solve_batched(primal, d_fly, cfg=cfg)
+    np.testing.assert_array_equal(np.asarray(res.U), np.asarray(ref.U))
